@@ -1,0 +1,293 @@
+"""Multi-stage ANNS processing (PilotANN §4) — port of
+``repro.core.multistage``.
+
+  0  entry selection   — FES (the CUDA distance kernel behind
+                         ``kernels/ops.fes_select`` on the card; the plain
+                         ``fes_select_ref`` on the CPU — same ids)
+  ①  pilot traversal   — compact subgraph + SVD-primary vectors (the CUDA
+                         traversal kernels with ``use_pallas_traversal`` /
+                         ``use_persistent_traversal``)
+  ②  residual refine   — exact full distances for the pilot beam via the
+                         SVD identity ‖x−q‖² = ‖xp−qp‖² + ‖xr−qr‖², then a
+                         bounded (2-round) traversal on the subgraph with
+                         full vectors
+  ③  final traversal   — full graph + full vectors, seeded with ②'s beam
+
+Stages ① and ② share a *compact* pilot id space, so stage ② inherits ①'s
+visited filter directly; stage ③ lives in the full id space and rebuilds
+its filter from the handed-over beam.  Stages ② and ③ are PyTorch ops (the
+reference has no kernel for them either).  With stages disabled this
+reduces to plain greedy search (the ablation of Table 5).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core import fes as F
+from repro_torch.core import quant
+from repro_torch.core import traversal as T
+
+INF = float("inf")
+
+# Per-stage stats: every value is a (B,) int32 tensor of per-query
+# distance-computation counts.  Both search entry points return exactly the
+# same key set.
+StatsDict = Dict[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class SearchParams:
+    """Per-call search knobs (the reference's, minus ``pallas_interpret``)."""
+    k: int = 10              # results returned per query
+    ef: int = 128            # stage-③ beam width (recall/latency dial)
+    ef_pilot: int = 128      # stage-① beam width
+    fes_L: int = 32          # entries returned by FES (stage-0 fan-in)
+    refine_iters: int = 2    # stage-② bounded traversal rounds (paper: 2)
+    use_fes: bool = True     # stage 0: FES entry selection vs coarse layer
+    use_pilot: bool = True   # stage ①: pilot subgraph traversal
+    use_refine: bool = True  # stage ②: residual refinement
+    visited_mode: str = "bloom"   # bloom | exact visited-set structure
+    bloom_bits: int = 16384  # bloom filter width per query (bits)
+    max_iters: int = 512     # safety bound on expansion rounds per stage
+    # multi-frontier expansion: frontier_width drives stages ②/③ (and the
+    # baseline); frontier_width_pilot drives stage ①.
+    frontier_width: int = 1
+    frontier_width_pilot: int = 1
+    # stage ① via the per-hop CUDA kernel (one launch per round)
+    use_pallas_traversal: bool = False
+    # stage ① via the persistent CUDA kernel (one launch for the search)
+    use_persistent_traversal: bool = False
+
+
+# The reference's ladder of padded batch sizes.  PyTorch runs eagerly, so the
+# engine does not pad; ``pad_to_bucket`` stays for callers that need a small
+# fixed set of shapes (CUDA graph capture).
+BATCH_BUCKETS: Tuple[int, ...] = (8, 16, 32, 64, 128)
+
+
+def bucket_size(B: int, buckets: Tuple[int, ...] = BATCH_BUCKETS) -> int:
+    """The smallest ladder rung ``>= B``, or the next multiple of the top
+    rung above the ladder."""
+    for b in buckets:
+        if B <= b:
+            return b
+    top = buckets[-1]
+    return -(-B // top) * top
+
+
+def pad_to_bucket(queries: torch.Tensor,
+                  buckets: Tuple[int, ...] = BATCH_BUCKETS
+                  ) -> Tuple[torch.Tensor, int]:
+    """Pad a query batch to its ladder bucket (zero rows); returns
+    ``(padded, original_B)``.  Padded rows are independent under the
+    batched traversal, so real rows are unchanged."""
+    B = queries.shape[0]
+    nb = bucket_size(B, buckets)
+    if nb == B:
+        return queries, B
+    return torch.nn.functional.pad(queries, (0, 0, 0, nb - B)), B
+
+
+def hierarchical_entries(arrays: Dict[str, torch.Tensor],
+                         queries: torch.Tensor, params: SearchParams,
+                         n_out: int = 4
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HNSW-hierarchy analogue: score the coarse sampled layer exactly and
+    take the top entries (ties toward the lower slot, as ``lax.top_k``).
+    Returns (coarse slot indices (B, n_out), per-query cost)."""
+    cv = arrays["coarse_vecs"][:-1]                # (m, d), drop sentinel row
+    d2 = T.sq_dists(queries, cv)                   # (B, m)
+    _, idx = F.topk_smallest(d2, n_out)
+    cost = torch.full((queries.shape[0],), cv.shape[0], dtype=torch.int32,
+                      device=queries.device)
+    return idx, cost
+
+
+def refine_stage(arrays: Dict[str, torch.Tensor], params: SearchParams,
+                 queries: torch.Tensor, cand_id: torch.Tensor,
+                 cand_dp: torch.Tensor, visited: torch.Tensor = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stage ②: exact re-rank of the pilot beam (fp32 pilot: the SVD
+    identity reuses the primary term), then a bounded traversal on the
+    compact subgraph with FULL vectors (neighbours from the compact table,
+    distances from ``rot_vecs`` via ``pilot_to_full``).
+
+    Returns ``(seed_id, seed_d, refine_dist)``: the refined beam mapped back
+    to FULL ids + its exact distances (stage ③'s seed), and the per-query
+    distance-computation count."""
+    nk = arrays["pilot_to_full"].shape[0] - 1
+    dp = arrays["primary"].shape[1]
+    ptf = arrays["pilot_to_full"].long()
+    Bq = queries.shape[0]
+    ptomb = arrays.get("pilot_tombstone")
+    if ptomb is not None:
+        cand_id = T.sentinel_mask(ptomb, cand_id, nk)
+    valid = cand_id < nk
+    cand_full = ptf[cand_id.long()]
+    qr = queries[:, dp:]
+    d_res = T.sq_dists(qr, arrays["residual"][cand_full])
+    d_full = torch.where(valid, cand_dp + d_res, INF)
+    n_rerank = valid.sum(1, dtype=torch.int32)
+
+    def dist2(qs, ids, fresh):
+        return T.sq_dists(qs, arrays["rot_vecs"][ptf[ids.long()]])
+    spec2 = T.TraversalSpec(ef=params.ef, visited_mode=params.visited_mode,
+                            bloom_bits=params.bloom_bits,
+                            frontier_width=params.frontier_width)
+    st2 = T.greedy_search(spec2, queries, arrays["sub_neighbors"],
+                          arrays["rot_vecs"], nk,
+                          entry_ids=torch.full((Bq, 1), nk, dtype=torch.int32,
+                                               device=queries.device),
+                          iters=params.refine_iters, visited=visited,
+                          extra_id=cand_id, extra_d=d_full, dist_fn=dist2,
+                          tombstone=ptomb)
+    return (ptf[st2.cand_id.long()].to(torch.int32), st2.cand_d,
+            n_rerank + st2.n_dist)
+
+
+def multistage_search(arrays: Dict[str, torch.Tensor], params: SearchParams,
+                      queries: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, StatsDict]:
+    """arrays: tensors built by engine.PilotANNIndex (or carried over from
+    the reference with ``engine.arrays_from_numpy``) —
+      full_neighbors (n+1, R), rot_vecs (n+1, d), residual (n+1, dr);
+      compact pilot tables sub_neighbors (nk+1, R) int16/int32,
+      primary (nk+1, dp) fp32, pilot_to_full (nk+1,); fes_centroids (r, d),
+      fes_entries (r, C, dp), fes_entry_ids (r, C) *pilot* ids,
+      fes_valid (r, C); coarse layer + pilot_default_entry.
+    Optional ``tombstone`` (n+1,) / ``pilot_tombstone`` (nk+1,) deletion
+    bitmaps are honoured as in the reference.
+    Queries must already be SVD-rotated (the engine handles it).
+    Returns (ids (B, k), dists (B, k), stats)."""
+    n = arrays["rot_vecs"].shape[0] - 1
+    nk = arrays["pilot_to_full"].shape[0] - 1      # compact pilot id space
+    dp = quant.primary_dim(arrays["primary"], arrays.get("primary_scale"),
+                           codebook=arrays.get("primary_codebook"))
+    Bq = queries.shape[0]
+    dev = queries.device
+    stats: StatsDict = {}
+    q_primary = queries[:, :dp].contiguous()
+    ptf = arrays["pilot_to_full"].long()
+    tomb = arrays.get("tombstone")
+    ptomb = arrays.get("pilot_tombstone")
+    zeros = torch.zeros((Bq,), dtype=torch.int32, device=dev)
+
+    # ---- stage 0: entry selection --------------------------------------
+    entry_full = None          # full-id entries (pilot disabled paths)
+    if params.use_fes:
+        fes_args = (q_primary, arrays["fes_centroids"], arrays["fes_entries"],
+                    arrays["fes_entry_ids"], arrays["fes_valid"])
+        if dev.type == "cuda":
+            from repro_torch.kernels import ops
+            entry_pilot, _ = ops.fes_select(*fes_args, L=params.fes_L,
+                                            tombstone=ptomb)
+        else:
+            entry_pilot, _ = F.fes_select_ref(*fes_args, params.fes_L,
+                                              tombstone=ptomb)
+        if not params.use_pilot:
+            entry_full = ptf[entry_pilot.long()]
+        # FES cost: one centroid pass + one cluster pass (counted per query)
+        stats["fes_dist"] = torch.full(
+            (Bq,), arrays["fes_centroids"].shape[0] +
+            arrays["fes_entries"].shape[1], dtype=torch.int32, device=dev)
+    else:
+        # coarse layer holds full-d vectors; select entries with full queries
+        slots, entry_cost = hierarchical_entries(arrays, queries, params)
+        entry_full = arrays["coarse_ids"][slots]
+        # pilot entries: coarse nodes mapped into the compact subgraph
+        # (sentinel when sampled out) + the guaranteed pilot medoid
+        entry_pilot = torch.cat(
+            [arrays["coarse_pilot_ids"][slots],
+             arrays["pilot_default_entry"].expand(Bq, 1)], dim=1)
+        stats["fes_dist"] = entry_cost
+
+    # ---- stage ①: pilot traversal (compact subgraph, primary dims) -----
+    if params.use_pilot:
+        spec1 = T.TraversalSpec(ef=params.ef_pilot,
+                                visited_mode=params.visited_mode,
+                                bloom_bits=params.bloom_bits,
+                                max_iters=params.max_iters,
+                                frontier_width=params.frontier_width_pilot,
+                                use_pallas=(params.use_pallas_traversal or
+                                            params.use_persistent_traversal),
+                                use_persistent=params.use_persistent_traversal)
+        st1 = T.greedy_search(spec1, q_primary, arrays["sub_neighbors"],
+                              arrays["primary"], nk, entry_pilot,
+                              tombstone=ptomb)
+        stats["pilot_dist"] = st1.n_dist
+        stats["pilot_hops"] = st1.n_hops
+        stats["pilot_expanded"] = st1.n_exp
+        cand_id, cand_dp = st1.cand_id, st1.cand_d       # compact pilot ids
+        cand_full = ptf[cand_id.long()]                  # (B, ef1) full ids
+        pilot_visited = st1.visited
+    else:
+        stats["pilot_dist"] = stats["pilot_hops"] = zeros
+        stats["pilot_expanded"] = zeros
+
+    # ---- stage ②: residual refinement (inherits ①'s visited filter) ----
+    seed_id = seed_d = None
+    if params.use_refine and params.use_pilot:
+        seed_id, seed_d, stats["refine_dist"] = refine_stage(
+            arrays, params, queries, cand_id, cand_dp, visited=pilot_visited)
+    else:
+        stats["refine_dist"] = zeros
+
+    # ---- stage ③: final traversal (full graph + vectors) ---------------
+    spec3 = T.TraversalSpec(ef=params.ef, visited_mode=params.visited_mode,
+                            bloom_bits=params.bloom_bits,
+                            max_iters=params.max_iters,
+                            frontier_width=params.frontier_width)
+    if seed_id is not None:
+        st3 = T.greedy_search(spec3, queries, arrays["full_neighbors"],
+                              arrays["rot_vecs"], n,
+                              entry_ids=torch.full((Bq, 1), n,
+                                                   dtype=torch.int32,
+                                                   device=dev),
+                              extra_id=seed_id, extra_d=seed_d,
+                              tombstone=tomb)
+    elif params.use_pilot:  # pilot w/o refine: re-score pilot beam fully
+        st3 = T.greedy_search(spec3, queries, arrays["full_neighbors"],
+                              arrays["rot_vecs"], n, entry_ids=cand_full,
+                              tombstone=tomb)
+    else:
+        st3 = T.greedy_search(spec3, queries, arrays["full_neighbors"],
+                              arrays["rot_vecs"], n, entry_ids=entry_full,
+                              tombstone=tomb)
+    stats["final_dist"] = st3.n_dist
+    stats["final_hops"] = st3.n_hops
+    stats["final_expanded"] = st3.n_exp
+    stats["total_cpu_dist"] = stats["refine_dist"] + stats["final_dist"]
+
+    ids, dists = T.topk_from_state(st3, params.k)
+    return ids, dists, stats
+
+
+def baseline_search(arrays: Dict[str, torch.Tensor], params: SearchParams,
+                    queries: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, StatsDict]:
+    """Single-stage greedy search on the full index (the HNSW-CPU baseline),
+    with the same ``stats`` schema as ``multistage_search``: the skipped
+    stages report zero, the coarse entry-layer scan is charged as
+    ``fes_dist`` and included in ``total_cpu_dist``."""
+    n = arrays["rot_vecs"].shape[0] - 1
+    spec = T.TraversalSpec(ef=params.ef, visited_mode=params.visited_mode,
+                           bloom_bits=params.bloom_bits,
+                           max_iters=params.max_iters,
+                           frontier_width=params.frontier_width)
+    slots, entry_cost = hierarchical_entries(arrays, queries, params)
+    entries = arrays["coarse_ids"][slots]
+    st = T.greedy_search(spec, queries, arrays["full_neighbors"],
+                         arrays["rot_vecs"], n, entries,
+                         tombstone=arrays.get("tombstone"))
+    ids, dists = T.topk_from_state(st, params.k)
+    zeros = torch.zeros_like(st.n_dist)
+    return ids, dists, {"fes_dist": entry_cost,
+                        "pilot_dist": zeros, "pilot_hops": zeros,
+                        "pilot_expanded": zeros, "refine_dist": zeros,
+                        "final_dist": st.n_dist, "final_hops": st.n_hops,
+                        "final_expanded": st.n_exp,
+                        "total_cpu_dist": st.n_dist + entry_cost}

@@ -1,0 +1,330 @@
+"""Batched greedy graph traversal (Algorithm 1 of the paper) in PyTorch.
+
+Port of ``repro.core.traversal``.  A query batch advances one W-wide
+neighbour-expansion round per step: the top ``W = spec.frontier_width``
+unchecked beam entries expand together, their up-to W·R neighbours are
+scored in one ``(B, W·R, d)`` block and merged into the sorted ``(B, ef)``
+beam with a stable sort.  Visited tracking is a bloom filter (paper §4.3)
+or an exact bitmap.
+
+With ``spec.use_pallas`` a round runs as one hand-written CUDA kernel
+(``kernels/traversal_kernel.fused_traversal_hop``), and with
+``spec.use_persistent`` the whole search does
+(``fused_pilot_search``).  The field names are the reference's, so a
+reader finds the counterpart; on CPU tensors both wrappers run their plain
+PyTorch versions.
+
+The traversal returns per-query distance-computation counts — the unit in
+which the paper reports all of its complexity results.
+
+Ties: ``jnp.argsort`` is stable, so every sort here is
+``torch.sort(stable=True)``; ``jnp.lexsort((d, ids))`` becomes two stable
+sorts (by d, then by id).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import partial
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import bloom as B
+from repro_torch.core import quant
+
+INF = float("inf")
+
+
+class SearchState(NamedTuple):
+    cand_id: torch.Tensor   # (B, ef) int32, sorted by distance; sentinel = n
+    cand_d: torch.Tensor    # (B, ef) float32
+    checked: torch.Tensor   # (B, ef) bool
+    visited: torch.Tensor   # (B, n_bits/n+1) bool filter
+    n_dist: torch.Tensor    # (B,) int32 distance-computation counter
+    n_hops: torch.Tensor    # (B,) int32 expansion *rounds* with work
+    n_exp: torch.Tensor     # (B,) int32 candidates actually expanded
+
+
+@dataclass(frozen=True)
+class TraversalSpec:
+    ef: int
+    visited_mode: str = "bloom"      # bloom | exact
+    bloom_bits: int = 16384
+    max_iters: int = 512
+    # multi-frontier expansion: expand the top-W unchecked beam entries per
+    # round.  W=1 is bit-identical to the classic single-frontier round.
+    frontier_width: int = 1
+    # one CUDA kernel per expansion round (kernels/traversal_kernel.py)
+    use_pallas: bool = False
+    # the whole search in one persistent CUDA kernel; requires use_pallas
+    use_persistent: bool = False
+
+
+def sentinel_mask(tombstone: torch.Tensor, ids: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """Every id whose bit is set in the ``(n+1,)`` tombstone bitmap becomes
+    the sentinel ``n`` (dtype-preserving, so int16 pilot tables stay
+    int16).  An all-false bitmap is the identity."""
+    t = tombstone[ids.long().clamp(0, tombstone.shape[0] - 1)]
+    return ids.masked_fill(t, n)
+
+
+def sq_dists(q: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """q: (B, d); vecs: (B, R, d) — or (m, d) shared across the batch —
+    -> (B, R) / (B, m) squared euclidean, fp32, as ``max(qn + vn − 2·dot, 0)``
+    (the reference's single source of truth for that identity)."""
+    q = q.float()
+    vecs = vecs.float()
+    qn = (q * q).sum(-1)[:, None]
+    vn = (vecs * vecs).sum(-1)
+    if vecs.ndim == 2:                     # one shared (m, d) table
+        return torch.clamp_min(qn + vn[None, :] - 2.0 * (q @ vecs.T), 0.0)
+    dot = torch.einsum("bd,brd->br", q, vecs)
+    return torch.clamp_min(qn + vn - 2.0 * dot, 0.0)
+
+
+def _visited_init(spec: TraversalSpec, batch: int, n: int, device):
+    if spec.visited_mode == "bloom":
+        return B.bloom_init(batch, spec.bloom_bits, device=device)
+    return B.exact_init(batch, n, device=device)
+
+
+def _visited_test(spec: TraversalSpec, filt, ids):
+    return (B.bloom_test if spec.visited_mode == "bloom"
+            else B.exact_test)(filt, ids)
+
+
+def _visited_insert(spec: TraversalSpec, filt, ids, mask):
+    return (B.bloom_insert if spec.visited_mode == "bloom"
+            else B.exact_insert)(filt, ids, mask)
+
+
+def init_state(spec: TraversalSpec, queries: torch.Tensor,
+               entry_ids: torch.Tensor, vector_table: torch.Tensor, n: int,
+               visited: Optional[torch.Tensor] = None,
+               extra_id: Optional[torch.Tensor] = None,
+               extra_d: Optional[torch.Tensor] = None) -> SearchState:
+    """Build the initial beam from entry points (+ optionally pre-scored
+    candidates handed over from an earlier stage).
+
+    ``vector_table`` is the padded ``(n+1, d)`` table (the reference takes it
+    without its sentinel row and re-appends a zero row; an entry at the
+    sentinel is masked to +inf either way, so gathering from the padded
+    table directly gives the same state without an O(n·d) copy)."""
+    Bq = entry_ids.shape[0]
+    entry_ids = entry_ids.to(torch.int32)
+    valid = entry_ids < n
+    evecs = quant.decode_rows(vector_table[entry_ids.long()])  # (B, E, d)
+    d = torch.where(valid, sq_dists(queries, evecs), INF)
+    n_dist = valid.sum(1, dtype=torch.int32)
+    if extra_id is not None:
+        entry_ids = torch.cat([extra_id.to(torch.int32), entry_ids], dim=1)
+        d = torch.cat([extra_d.float(), d], dim=1)
+
+    # dedupe identical ids (keep best distance): sort by (id, d), mask repeats
+    o = torch.sort(d, dim=1, stable=True).indices
+    sid, sd = entry_ids.gather(1, o), d.gather(1, o)
+    o = torch.sort(sid, dim=1, stable=True).indices
+    sid, sd = sid.gather(1, o), sd.gather(1, o)
+    dup = torch.zeros_like(sid, dtype=torch.bool)
+    dup[:, 1:] = sid[:, 1:] == sid[:, :-1]
+    sd = sd.masked_fill(dup, INF)
+    sid = sid.masked_fill(dup, n)
+
+    # sort by distance, pad/trim to ef
+    k = spec.ef
+    o = torch.sort(sd, dim=1, stable=True).indices
+    sid, sd = sid.gather(1, o), sd.gather(1, o)
+    if sid.shape[1] >= k:
+        cand_id, cand_d = sid[:, :k], sd[:, :k]
+    else:
+        pad = k - sid.shape[1]
+        cand_id = torch.nn.functional.pad(sid, (0, pad), value=n)
+        cand_d = torch.nn.functional.pad(sd, (0, pad), value=INF)
+
+    live = cand_id < n
+    filt = (visited if visited is not None
+            else _visited_init(spec, Bq, n, queries.device))
+    filt = _visited_insert(spec, filt, cand_id.masked_fill(~live, 0), live)
+    z = torch.zeros((Bq,), dtype=torch.int32, device=queries.device)
+    return SearchState(cand_id=cand_id.contiguous(),
+                       cand_d=cand_d.contiguous(), checked=~live,
+                       visited=filt, n_dist=n_dist, n_hops=z, n_exp=z)
+
+
+def _frontier(state: SearchState, n: int, W: int):
+    """Top-W unchecked candidates per query: the beam is distance-sorted, so
+    the first W unchecked slots are the W best (rows with none stay idle).
+    Returns (unchecked, cum, sel)."""
+    unchecked = ~state.checked & (state.cand_id < n)
+    cum = unchecked.to(torch.int32).cumsum(1)
+    return unchecked, cum, unchecked & (cum <= W)
+
+
+def expansion_round(spec: TraversalSpec, state: SearchState,
+                    queries: torch.Tensor, neighbor_table: torch.Tensor,
+                    vector_table: torch.Tensor, n: int,
+                    nbr_fn=None, dist_fn=None) -> SearchState:
+    """One synchronous W-wide neighbour-expansion round for the whole batch.
+
+    Visited filtering is *sequential per frontier* — frontier ``w`` is
+    tested against the filter including frontiers ``< w``'s inserts — so a
+    node reachable from two frontiers in the same round is scored once;
+    within one frontier, duplicates are each scored.  The merge is a stable
+    sort of ``[beam ; new]``: ties keep beam-first order.
+
+    ``nbr_fn(u) -> (B, R)`` and ``dist_fn(queries, ids, fresh)`` override
+    the table lookups (stage ② scores full vectors through the compact
+    ids this way)."""
+    if spec.use_pallas and nbr_fn is None and dist_fn is None:
+        return _kernel_round(spec, state, queries, neighbor_table,
+                             vector_table, n)
+    return expand_round(spec, state, queries, neighbor_table, vector_table,
+                        n, nbr_fn, dist_fn)[0]
+
+
+def expand_round(spec: TraversalSpec, state: SearchState,
+                 queries: torch.Tensor, neighbor_table: torch.Tensor,
+                 vector_table: torch.Tensor, n: int, nbr_fn=None,
+                 dist_fn=None) -> Tuple[SearchState, torch.Tensor]:
+    """The plain body of ``expansion_round``; also returns the (B, W·R)
+    ``fresh`` mask (the per-hop kernel's extra output)."""
+    W = spec.frontier_width
+    unchecked, cum, sel = _frontier(state, n, W)
+    has_work = unchecked.any(1)
+    checked = state.checked | sel
+    n_exp = state.n_exp + sel.sum(1, dtype=torch.int32)
+
+    visited = state.visited
+    nbrs_w, fresh_w = [], []
+    for w in range(W):
+        mask_w = sel & (cum == w + 1)                     # w-th frontier slot
+        u_w = torch.where(mask_w.any(1),
+                          state.cand_id.masked_fill(~mask_w, 0).sum(1), n)
+        nw = (neighbor_table[u_w.long()] if nbr_fn is None
+              else nbr_fn(u_w)).to(torch.int32)           # (B, R)
+        vw = nw < n
+        key = nw.masked_fill(~vw, 0)
+        fw = vw & ~_visited_test(spec, visited, key)
+        visited = _visited_insert(spec, visited, key, fw)
+        nbrs_w.append(nw)
+        fresh_w.append(fw)
+    nbrs = torch.cat(nbrs_w, dim=1)                       # (B, W·R)
+    fresh = torch.cat(fresh_w, dim=1)
+
+    if dist_fn is None:
+        nvecs = quant.decode_rows(vector_table[nbrs.long()])  # (B, W·R, d)
+        d = torch.where(fresh, sq_dists(queries, nvecs), INF)
+    else:
+        d = torch.where(fresh, dist_fn(queries, nbrs, fresh), INF)
+    n_dist = state.n_dist + fresh.sum(1, dtype=torch.int32)
+
+    # merge beam with fresh neighbours (stable: ties keep beam-first order)
+    ef = state.cand_id.shape[1]
+    all_id = torch.cat([state.cand_id, nbrs.masked_fill(~fresh, n)], dim=1)
+    all_d = torch.cat([state.cand_d, d], dim=1)
+    all_ck = torch.cat([checked, ~fresh], dim=1)
+    order = torch.sort(all_d, dim=1, stable=True).indices[:, :ef]
+    return SearchState(
+        cand_id=all_id.gather(1, order),
+        cand_d=all_d.gather(1, order),
+        checked=all_ck.gather(1, order),
+        visited=visited,
+        n_dist=n_dist,
+        n_hops=state.n_hops + has_work.to(torch.int32),
+        n_exp=n_exp,
+    ), fresh
+
+
+def _kernel_round(spec: TraversalSpec, state: SearchState,
+                  queries: torch.Tensor, neighbor_table: torch.Tensor,
+                  vector_table: torch.Tensor, n: int) -> SearchState:
+    """Fused expansion round: the whole W-wide hop body is one kernel
+    launch; only the counters are kept here."""
+    from repro_torch.kernels.traversal_kernel import fused_traversal_hop
+
+    unchecked, _, sel = _frontier(state, n, spec.frontier_width)
+    new_id, new_d, new_ck, visited, fresh = fused_traversal_hop(
+        queries, neighbor_table, vector_table, state.cand_id, state.cand_d,
+        state.checked, state.visited, n, width=spec.frontier_width,
+        visited_mode=spec.visited_mode)
+    return SearchState(
+        cand_id=new_id, cand_d=new_d, checked=new_ck, visited=visited,
+        n_dist=state.n_dist + fresh.sum(1, dtype=torch.int32),
+        n_hops=state.n_hops + unchecked.any(1).to(torch.int32),
+        n_exp=state.n_exp + sel.sum(1, dtype=torch.int32),
+    )
+
+
+def greedy_search(spec: TraversalSpec, queries: torch.Tensor,
+                  neighbor_table: torch.Tensor, vector_table: torch.Tensor,
+                  n: int, entry_ids: torch.Tensor, *,
+                  iters: Optional[int] = None,
+                  visited: Optional[torch.Tensor] = None,
+                  extra_id: Optional[torch.Tensor] = None,
+                  extra_d: Optional[torch.Tensor] = None,
+                  nbr_fn=None, dist_fn=None,
+                  tombstone: Optional[torch.Tensor] = None) -> SearchState:
+    """Greedy best-first search (Algorithm 1), batched, W-wide per round.
+
+    neighbor_table: (n+1, R) padded adjacency (row n = sentinel row).
+    vector_table:   (n+1, d) vectors with a zero row at n.
+    tombstone: optional (n+1,) bool deletion bitmap; tombstoned ids are
+    sentinel-masked out of the adjacency, the entries and the handed-over
+    beam before the search starts.
+    iters: if given, runs a fixed number of rounds; otherwise runs to
+    convergence (no unchecked candidate anywhere) with spec.max_iters as a
+    safety bound — a Python loop with one ``any()`` host sync per round.
+    With spec.use_persistent (and no hooks) the whole loop runs inside one
+    persistent kernel instead; a converged round is a fixed point, so the
+    results are identical either way.
+    """
+    if tombstone is not None:
+        neighbor_table = sentinel_mask(tombstone, neighbor_table, n)
+        entry_ids = sentinel_mask(tombstone, entry_ids, n)
+        if extra_id is not None:
+            dead = tombstone[extra_id.long().clamp(0, n)]
+            extra_id = extra_id.masked_fill(dead, n)
+            extra_d = extra_d.masked_fill(dead, INF)
+    state = init_state(spec, queries, entry_ids, vector_table, n,
+                       visited=visited, extra_id=extra_id, extra_d=extra_d)
+
+    if (spec.use_pallas and spec.use_persistent and nbr_fn is None
+            and dist_fn is None):
+        from repro_torch.kernels.traversal_kernel import fused_pilot_search
+        rounds = iters if iters is not None else spec.max_iters
+        nid, nd, nck, nvis, d_dist, d_hops, d_exp = fused_pilot_search(
+            queries, neighbor_table, vector_table, state.cand_id,
+            state.cand_d, state.checked, state.visited, n, rounds=rounds,
+            width=spec.frontier_width, visited_mode=spec.visited_mode)
+        return SearchState(cand_id=nid, cand_d=nd, checked=nck,
+                           visited=nvis, n_dist=state.n_dist + d_dist,
+                           n_hops=state.n_hops + d_hops,
+                           n_exp=state.n_exp + d_exp)
+
+    round_fn = partial(expansion_round, spec, queries=queries,
+                       neighbor_table=neighbor_table,
+                       vector_table=vector_table, n=n,
+                       nbr_fn=nbr_fn, dist_fn=dist_fn)
+    if iters is not None:
+        for _ in range(iters):
+            state = round_fn(state)
+        return state
+    return run_to_convergence(round_fn, state, n, spec.max_iters)
+
+
+def run_to_convergence(round_fn, state: SearchState, n: int,
+                       max_rounds: int) -> SearchState:
+    """Apply ``round_fn`` until no query has an unchecked candidate, at most
+    ``max_rounds`` times — one ``any()`` host sync per round."""
+    for _ in range(max_rounds):
+        if not bool((~state.checked & (state.cand_id < n)).any()):
+            break
+        state = round_fn(state)
+    return state
+
+
+def topk_from_state(state: SearchState, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return state.cand_id[:, :k], state.cand_d[:, :k]

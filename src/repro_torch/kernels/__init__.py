@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+Nothing here builds or imports CUDA code at import time: the wrappers build
+``csrc/`` at their first call on a CUDA tensor (``_build.py``)."""
+
+from repro_torch.kernels.fes_kernel import fes_distances
+from repro_torch.kernels.ops import fes_select
+from repro_torch.kernels.traversal_kernel import (fused_pilot_search,
+                                                  fused_traversal_hop)
+
+KERNELS = (fused_pilot_search, fused_traversal_hop, fes_distances)
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+__all__ = ["KERNELS", "fes_distances", "fes_select", "fused_pilot_search",
+           "fused_traversal_hop", "launch_counts", "reset_launch_counts"]

@@ -1,0 +1,112 @@
+"""Build the CUDA sources under ``csrc/`` at first use and load them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
+with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+-fPIC`` into ``build/lib<name>-<hash>.so`` at the repository root
+(``REPRO_TORCH_BUILD_DIR`` overrides the directory), then loaded with
+``ctypes``.  The file name carries a hash of the source and the flags, so
+an edited source is rebuilt and an unchanged one is reused.  ``build_all``
+starts one ``nvcc`` per source, all at once.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` raises when that is not 0.  Nothing here runs at import time: the
+CPU tests import every module of the port on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("traversal", "fes")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
+                           "-fPIC"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# wall seconds of the last build_all, per source it compiled
+BUILD_SECONDS: Dict[str, float] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    return Path(env) if env else CSRC.parents[2] / "build"
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(nvcc).exists():
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the CUDA kernels build only on a machine with "
+                           "the CUDA toolkit")
+    return nvcc
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return build_dir() / f"lib{name}-{h}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every missing library, one ``nvcc`` per source in parallel;
+    returns ``{name: path}``.  Raises with nvcc's output on failure."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    paths = {name: _target(name) for name in names}
+    todo = {k: p for k, p in paths.items() if not p.exists()}
+    t0 = time.perf_counter()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
+    errors = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+        else:
+            tmp.replace(path)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    if todo:
+        BUILD_SECONDS.update({name: time.perf_counter() - t0
+                              for name in todo})
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = build_all([name])[name]
+        lib = ctypes.CDLL(str(path))
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
