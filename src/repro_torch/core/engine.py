@@ -1,10 +1,14 @@
 """Single-host PilotANN engine: index build + search entry points — port of
 ``repro.core.engine``.
 
-Build (offline, numpy, identical to the reference — same seed, same arrays):
+Build (offline, identical to the reference — same seed, same arrays):
 SVD rotation → full graph → sampled subgraph rebuilt with the same
-construction algorithm (paper §4.1/§4.3) → FES clusters → coarse layer.  The
-stage-① ("pilot") payloads live in a *compact* id space.
+construction algorithm (paper §4.1/§4.3) → FES clusters → coarse layer.
+The graphs are built on the host (numpy; ``build_method`` exact, clustered
+or auto) or, with ``build_method="nn_descent"``, by the device build
+(``core/device_build``) on the index's own device; the coarse layer always
+uses the host's ``auto``.  ``build_seconds`` keeps the wall seconds by
+part.  The stage-① ("pilot") payloads live in a *compact* id space.
 
 Search (online, PyTorch): ``multistage_search`` / ``baseline_search`` run
 eagerly on the index's device.  Entry points run on ``cuda`` unless the
@@ -18,6 +22,7 @@ packages can be run on identical index state.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -25,19 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import csr, fes, graph_build, multistage, quant, svd
+from repro_torch.core.devices import resolve_device
 from repro_torch.core.multistage import SearchParams
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  Raises when a CUDA device is asked for and
-    there is none: callers that want the CPU say ``device="cpu"``."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "port's plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
-    return dev
 
 
 def arrays_from_numpy(arrays: Dict[str, np.ndarray],
@@ -74,7 +68,8 @@ class IndexConfig:
     n_entry: int = 8192          # FES entry pool size
     fes_clusters: int = 32       # r (warp width in the paper)
     coarse_ratio: float = 1.0 / 64  # entry-layer size (HNSW-hierarchy analogue)
-    build_method: str = "auto"   # exact | clustered | auto
+    # exact | clustered | auto (host) | nn_descent (on the index's device)
+    build_method: str = "auto"
     seed: int = 0
     pilot_dtype: str = "float32"
     # pilot-graph id width: auto (int16 when the compact id space fits,
@@ -94,15 +89,19 @@ class PilotANNIndex:
         self.cfg = cfg
         self.n, self.d = vectors.shape
         n = self.n
+        secs = self.build_seconds = {"full_graph": {}, "subgraph": {}}
+        t0 = time.perf_counter()
 
         # --- SVD rotation & split (§4.1) ---
         self.reducer = svd.svd_fit(vectors, cfg.svd_ratio, seed=cfg.seed)
         rot = self.reducer.rotate(vectors)                     # (n, d)
         dp = self.reducer.d_primary
+        secs["svd"] = time.perf_counter() - t0
 
         # --- full graph ---
         self.full_graph = graph_build.build_graph(
-            rot, cfg.R, method=cfg.build_method, seed=cfg.seed)
+            rot, cfg.R, method=cfg.build_method, seed=cfg.seed,
+            device=self.device, timings=secs["full_graph"])
 
         # --- sampled subgraph, rebuilt with the same construction algo ---
         keep = csr.subgraph_sample(self.full_graph, cfg.sample_ratio,
@@ -111,7 +110,9 @@ class PilotANNIndex:
         nk = len(keep_ids)
         if nk > 2:
             sub_compact = graph_build.build_graph(
-                rot[keep_ids], cfg.R, method=cfg.build_method, seed=cfg.seed + 1)
+                rot[keep_ids], cfg.R, method=cfg.build_method,
+                seed=cfg.seed + 1, device=self.device,
+                timings=secs["subgraph"])
             # remap compacted ids -> original ids; zero-out-degree CSR (§4.3)
             nb = sub_compact.neighbors
             remapped = np.where(nb < len(keep_ids),
@@ -140,12 +141,15 @@ class PilotANNIndex:
         # fes_index keeps *full*-corpus entry ids; the device table carries
         # compact pilot ids for stage ① ---
         ne = min(cfg.n_entry, nk)
+        t0 = time.perf_counter()
         self.fes_index = fes.build_fes(
             rot[:, :dp], keep_ids, r=cfg.fes_clusters, n_entry=cfg.n_entry,
             seed=cfg.seed,
             max_capacity=fes.fes_capacity_cap(ne, cfg.fes_clusters))
+        secs["fes"] = time.perf_counter() - t0
 
         # --- coarse entry layer (baseline and the "- FES" ablation) ---
+        t0 = time.perf_counter()
         rng = np.random.default_rng(cfg.seed + 7)
         m = min(n, max(64, int(n * cfg.coarse_ratio)))
         coarse_ids = np.sort(rng.choice(n, size=m, replace=False))
@@ -154,6 +158,8 @@ class PilotANNIndex:
                                                seed=cfg.seed + 7)
         self.coarse_ids = coarse_ids
         self.coarse_graph = coarse_graph
+        secs["coarse"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
 
         # --- device tensors (same keys, dtypes and values as the
         # reference's arrays dict) ---
@@ -179,6 +185,7 @@ class PilotANNIndex:
             "primary": pilot_primary.astype(np.float32),
             "fes_entries": self.fes_index.entries.astype(np.float32),
         }, self.device)
+        secs["tables"] = time.perf_counter() - t0
 
         if cfg.pilot_budget_bytes is not None:
             got = self.memory_report()["pilot_bytes"]

@@ -9,14 +9,17 @@ PilotANN is construction-agnostic (it reuses the index's own build algorithm;
      d(q, c) < alpha * min_{kept k} d(k, c),
   3. reverse edges + degree cap.
 
-The same seed gives the same graph as the reference, array for array.  The
-insert-repair primitives and the device NN-descent build wait for the
-mutable index and the device build (ROADMAP A7).
+The same seed gives the same graph as the reference, array for array.
+``method="nn_descent"`` is the device build (``core/device_build``), which
+runs on the ``device`` it is given.  The insert-repair primitives
+(``prune_one``, ``greedy_candidates``, ``patch_reverse_edges``) are the
+host versions the batched device repair is held against.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -164,6 +167,124 @@ def occlusion_prune(x: np.ndarray, cand_ids: np.ndarray, cand_d: np.ndarray,
     return kept
 
 
+def prune_one(cand_vecs: np.ndarray, cand_d: np.ndarray, R: int, *,
+              alpha: float = 1.2, edge_ok: Optional[np.ndarray] = None,
+              keep_pruned: bool = True) -> np.ndarray:
+    """Occlusion-prune the candidate list of ONE node (the insert-time
+    repair primitive, DESIGN.md §6).  ``cand_vecs`` (K, d) / ``cand_d``
+    (K,) are the node's collected candidates; candidates with
+    ``edge_ok=False`` (e.g. base-segment nodes a delta node cannot link to)
+    still join the kept set as *occluders* but never consume an edge slot.
+
+    Scans candidates in distance order, keeping c unless an already-kept k
+    occludes it (``occludes``); with ``keep_pruned``, leftover edge slots
+    backfill with the nearest occluded edge-eligible candidates.  Returns
+    the kept-edge indices into the candidate arrays (≤ R, distance order).
+    """
+    K = len(cand_d)
+    edge_ok = np.ones(K, bool) if edge_ok is None else edge_ok
+    order = np.argsort(cand_d, kind="stable")
+    kept_vecs: list = []
+    edges: list = []
+    taken = np.zeros(K, bool)
+    for j in order:
+        if not np.isfinite(cand_d[j]) or len(edges) >= R:
+            continue
+        cv = cand_vecs[j]
+        if kept_vecs:
+            diff = np.stack(kept_vecs) - cv[None, :]
+            if occludes((diff * diff).sum(-1), cand_d[j], alpha).any():
+                continue
+        kept_vecs.append(cv)
+        taken[j] = True
+        if edge_ok[j]:
+            edges.append(j)
+    if keep_pruned:
+        for j in order:
+            if len(edges) >= R:
+                break
+            if not taken[j] and edge_ok[j] and np.isfinite(cand_d[j]):
+                edges.append(j)
+                taken[j] = True
+    return np.asarray(edges, np.int64)
+
+
+def greedy_candidates(neighbors: np.ndarray, x: np.ndarray,
+                      queries: np.ndarray, entry: int, *, ef: int = 64,
+                      live: Optional[np.ndarray] = None
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Numpy best-first beam search over a padded (n, R) adjacency —
+    greedy-search-guided candidate collection for insert-time repair
+    (FreshDiskANN's insert; DESIGN.md §6).  ``live``: optional (n,) mask;
+    dead nodes are traversed *through* but never returned as candidates.
+    Returns (ids (B, ef), d2 (B, ef)), distance-sorted, sentinel ``n`` /
+    ``inf`` padded."""
+    n = x.shape[0]
+    Bq = queries.shape[0]
+    out_ids = np.full((Bq, ef), n, np.int64)
+    out_d = np.full((Bq, ef), np.inf, np.float32)
+    for b in range(Bq):
+        q = queries[b]
+        dv = x[entry] - q
+        beam = {entry: float((dv * dv).sum())}
+        checked: set = set()
+        visited = {entry}
+        while True:
+            frontier = [(d, u) for u, d in beam.items() if u not in checked]
+            if not frontier:
+                break
+            _, u = min(frontier)
+            checked.add(u)
+            nbrs = neighbors[u]
+            nbrs = nbrs[nbrs < n]
+            fresh = [v for v in nbrs if v not in visited]
+            visited.update(fresh)
+            for v in fresh:
+                dv = x[v] - q
+                beam[v] = float((dv * dv).sum())
+            if len(beam) > ef:
+                beam = dict(sorted(beam.items(), key=lambda kv: kv[1])[:ef])
+        items = sorted(beam.items(), key=lambda kv: kv[1])
+        if live is not None:
+            items = [(u, d) for u, d in items if live[u]]
+        items = items[:ef]
+        for j, (u, d) in enumerate(items):
+            out_ids[b, j] = u
+            out_d[b, j] = d
+    return out_ids, out_d
+
+
+def patch_reverse_edges(neighbors: np.ndarray, x: np.ndarray,
+                        src_ids: np.ndarray, n: int, R: int, *,
+                        alpha: float = 1.2) -> np.ndarray:
+    """Reverse-edge augmentation for freshly inserted nodes (in place;
+    DESIGN.md §6): for every edge ``u -> v`` of a new node ``u`` in
+    ``src_ids``, add the reverse ``v -> u``.  A free slot takes it
+    directly; a full row is *re-pruned* — ``prune_one`` over v's current
+    neighbours ∪ {u} — so the degree bound R is never exceeded and the row
+    keeps the occlusion-diverse subset (FreshDiskANN's robust-prune on
+    overflow).  Returns ``neighbors`` for convenience."""
+    for u in np.asarray(src_ids, np.int64):
+        for v in neighbors[u]:
+            if v >= n or v == u:
+                continue
+            row = neighbors[v]
+            deg = int((row < n).sum())
+            if (row[:deg] == u).any():
+                continue
+            if deg < R:
+                row[deg] = u
+                continue
+            cand = np.concatenate([row[:deg], [u]]).astype(np.int64)
+            diff = x[cand] - x[v][None, :]
+            cd = (diff * diff).sum(-1).astype(np.float32)
+            kept = prune_one(x[cand], cd, R, alpha=alpha)
+            new_row = np.full(row.shape[0], n, row.dtype)
+            new_row[:len(kept)] = cand[kept]
+            neighbors[v] = new_row
+    return neighbors
+
+
 def add_reverse_edges(neighbors: np.ndarray, n: int, R: int) -> np.ndarray:
     """Add reverse edges where slots allow (degree cap R).  Vectorised:
     incoming edges are ranked per destination and written into the free
@@ -206,7 +327,14 @@ def connect_components(neighbors: np.ndarray, x: np.ndarray, entry: int,
     """NSG-style spanning repair: label weakly-connected components in one
     sweep, then link every non-core component to the entry component through
     its (approximately) nearest cross pair, so greedy search from the entry
-    can reach the whole graph."""
+    can reach the whole graph.
+
+    Same links, in the same order and from the same random draws, as the
+    reference; the members of every component come from one stable sort of
+    the labels instead of a scan of all n labels per component, which made
+    the reference O(n · components) — minutes at n = 1M with tens of
+    thousands of unreachable nodes — and the core sample's norms are taken
+    once per pass."""
     rng = np.random.default_rng(seed)
     n = x.shape[0]
     nb = neighbors.copy()
@@ -231,14 +359,20 @@ def connect_components(neighbors: np.ndarray, x: np.ndarray, entry: int,
             n_comp += 1
         if n_comp == 1:
             return nb
-        core_ids = np.flatnonzero(comp == 0)
+        order = np.argsort(comp, kind="stable")     # ascending ids per label
+        bounds = np.searchsorted(comp[order], np.arange(n_comp + 1))
+        core_ids = order[bounds[0]:bounds[1]]
         rs = core_ids if len(core_ids) <= sample else \
             rng.choice(core_ids, sample, replace=False)
+        xr = x[rs]
+        xr2 = (xr * xr).sum(-1)[None, :]            # pairwise_sq_dists' b2
         for c in range(1, n_comp):
-            comp_ids = np.flatnonzero(comp == c)
+            comp_ids = order[bounds[c]:bounds[c + 1]]
             cs = comp_ids if len(comp_ids) <= sample else \
                 rng.choice(comp_ids, sample, replace=False)
-            d2 = pairwise_sq_dists(x[cs], x[rs])
+            xc = x[cs]
+            d2 = np.maximum((xc * xc).sum(-1)[:, None] + xr2
+                            - 2.0 * (xc @ xr.T), 0.0)
             i, j = np.unravel_index(np.argmin(d2), d2.shape)
             a, b = int(rs[j]), int(cs[i])  # a in core, b in component
             for s, t in ((a, b), (b, a)):
@@ -256,19 +390,27 @@ def connect_components(neighbors: np.ndarray, x: np.ndarray, entry: int,
 def build_graph(x: np.ndarray, R: int = 32, *, method: str = "auto",
                 alpha: float = 1.2, knn_k: Optional[int] = None,
                 seed: int = 0, reverse: bool = True,
-                repair: bool = True) -> Graph:
+                repair: bool = True, device=None,
+                timings: Optional[Dict[str, float]] = None) -> Graph:
     """Construct a navigable graph.
-    method: exact | clustered | auto (``nn_descent`` raises until ROADMAP A7
-    ports the device build)."""
+    method: exact | clustered | nn_descent | auto.  ``nn_descent`` is the
+    device-resident CAGRA-style builder (``core/device_build``):
+    NN-descent candidate lists + device occlusion prune on ``device``
+    (``None`` means the card); the other methods run on the host and
+    ignore ``device``.  The reverse / connectivity passes are shared.
+    ``timings``, when given, receives the wall seconds of ``knn``,
+    ``prune`` and ``reverse_repair``."""
     n = x.shape[0]
     x = np.ascontiguousarray(x, np.float32)
     knn_k = knn_k or min(n - 1, 2 * R)
     if method == "auto":
         method = "exact" if n <= 50_000 else "clustered"
     if method == "nn_descent":
-        raise NotImplementedError(
-            "build_method='nn_descent' (device NN-descent build) is not "
-            "ported yet: ROADMAP A7")
+        from repro_torch.core import device_build
+        return device_build.build_graph_device(
+            x, R, alpha=alpha, knn_k=knn_k, seed=seed, reverse=reverse,
+            repair=repair, device=device, timings=timings)
+    t0 = time.perf_counter()
     if method == "exact":
         ids, dd = brute_knn(x, knn_k)
     elif method == "clustered":
@@ -277,11 +419,16 @@ def build_graph(x: np.ndarray, R: int = 32, *, method: str = "auto",
     else:
         raise ValueError(f"unknown build method {method!r} "
                          f"(exact | clustered | nn_descent | auto)")
+    t1 = time.perf_counter()
     nb = occlusion_prune(x, ids, dd, R, alpha=alpha)
+    t2 = time.perf_counter()
     if reverse:
         nb = add_reverse_edges(nb, n, R)
     if repair and n > 1:
         nb = connect_components(nb, x, medoid(x))
+    if timings is not None:
+        timings.update(knn=t1 - t0, prune=t2 - t1,
+                       reverse_repair=time.perf_counter() - t2)
     return Graph(nb.astype(np.int32), n)
 
 

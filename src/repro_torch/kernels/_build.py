@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` into ``build/lib<name>-<hash>.so`` at the repository root
 (``REPRO_TORCH_BUILD_DIR`` overrides the directory), then loaded with
-``ctypes``.  The file name carries a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is reused.  ``build_all``
+``ctypes``.  The file name carries a hash of the source, of every
+``csrc/*.cuh`` header it includes and of the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.  ``build_all``
 starts one ``nvcc`` per source, all at once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,7 +27,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("traversal", "fes")
+SOURCES = ("traversal", "fes", "topk", "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC"]
@@ -49,10 +51,18 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _headers(src: bytes) -> list:
+    """The ``csrc/`` headers a source includes (``#include "x.cuh"``)."""
+    return sorted(set(re.findall(rb'#include\s+"([\w.]+\.cuh)"', src)))
+
+
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{h}.so"
+    h = hashlib.sha1(src)
+    for header in _headers(src):
+        h.update((CSRC / header.decode()).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
@@ -101,6 +111,25 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def on_cpu(what: str, *ts) -> bool:
+    """True when every operand lies on the CPU (the wrapper then runs its
+    plain version), False when all are on one CUDA device; raises on a mix
+    or on another device type."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"{what} operands on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {dev}")
+    return False
+
+
+def next_pow2(x: int) -> int:
+    return 1 << max(1, (x - 1).bit_length())
 
 
 def ptr(t) -> ctypes.c_void_p:

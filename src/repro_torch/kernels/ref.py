@@ -2,10 +2,11 @@
 
 Port of ``repro.kernels.ref``.  These are what the kernel wrappers run on
 CPU tensors, and what ``chip_smoke.py`` holds each CUDA kernel against on
-the card.  The traversal versions repeat the CUDA kernel's summation order
-(``lane_dot``), so on the same inputs they give the kernel's bits; against
-the JAX reference, distances agree within float noise and ids, flags,
-visited bits and counters exactly.
+the card.  The traversal and expand-merge versions repeat the CUDA kernels'
+summation order (``lane_dot``), so on the same inputs they give the
+kernels' bits; against the JAX reference, distances agree within float
+noise and ids, flags, visited bits and counters exactly.  The candidate
+merge does no arithmetic and is bit-equal to both.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from repro_torch.core import traversal as T
 
 LANES = 32
+BIG = 3.0e38  # +inf stand-in of the build and expand-merge (reference BIG)
 
 
 def lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -48,14 +50,19 @@ def fes_distances_ref(q_grouped: torch.Tensor,
     return qn + en - 2.0 * torch.einsum("rqd,rcd->rqc", q, e)
 
 
+def lane_sq(q: torch.Tensor, nv: torch.Tensor) -> torch.Tensor:
+    """(B, d) x (B, M, d) -> (B, M): ``max(qn + vn − 2·dot, 0)`` with every
+    sum in ``lane_dot``'s order."""
+    qf, nv = q.float(), nv.float()
+    return torch.clamp_min(lane_dot(qf, qf)[:, None] + lane_dot(nv, nv)
+                           - 2.0 * lane_dot(qf[:, None, :], nv), 0.0)
+
+
 def lane_sq_dists(vec_table: torch.Tensor):
-    """``dist_fn`` for ``core.traversal.expand_round``: ``max(qn + vn −
-    2·dot, 0)`` with every sum in ``lane_dot``'s order."""
+    """``dist_fn`` for ``core.traversal.expand_round``: ``lane_sq`` of the
+    gathered rows."""
     def dist_fn(q, ids, fresh):
-        qf = q.float()
-        nv = vec_table[ids.long()].float()                # (B, W·R, d)
-        return torch.clamp_min(lane_dot(qf, qf)[:, None] + lane_dot(nv, nv)
-                               - 2.0 * lane_dot(qf[:, None, :], nv), 0.0)
+        return lane_sq(q, vec_table[ids.long()])          # (B, W·R)
     return dist_fn
 
 
@@ -97,3 +104,59 @@ def pilot_search_ref(q, nbr_table, vec_table, beam_id, beam_d, beam_ck,
         _state(beam_id, beam_d, beam_ck, visited), n, rounds)
     return (st.cand_id, st.cand_d, st.checked, st.visited, st.n_dist,
             st.n_hops, st.n_exp)
+
+
+def _stable_argsort(key: torch.Tensor) -> torch.Tensor:
+    if key.is_floating_point():
+        key = key + 0.0              # -0.0 -> +0.0: the two compare equal
+    return torch.sort(key, dim=1, stable=True).indices
+
+
+def lexsort2(primary: torch.Tensor, secondary: torch.Tensor) -> torch.Tensor:
+    """Row-wise stable argsort by ``(primary, secondary)`` — ``jnp.lexsort(
+    (secondary, primary))`` — as two stable sorts, the secondary key first.
+    Floats compare as floats (``-0.0 == 0.0``, as in the reference's sort)."""
+    o = _stable_argsort(secondary)
+    return o.gather(1, _stable_argsort(primary.gather(1, o)))
+
+
+def candidate_merge_ref(cand_ids, cand_d, prop_ids, prop_d, n: int):
+    """One NN-descent merge (port of ``repro.kernels.ref.
+    candidate_merge_ref``): the (B, K) incumbent lists with the (B, P)
+    scored proposals, ids >= n dropped, deduplicated by id keeping the
+    smallest distance, then the (distance, id) top-K.  Sentinel slots come
+    back as id ``n`` with distance BIG.  The plain version of
+    ``kernels.build_kernel.fused_candidate_merge``, and the merge that runs
+    on CPU tensors."""
+    K = cand_ids.shape[1]
+    all_ids = torch.cat([cand_ids, prop_ids], dim=1)
+    all_d = torch.cat([cand_d, prop_d], dim=1)
+    bad = all_ids >= n
+    all_d = torch.where(bad, BIG, all_d)
+    all_ids = torch.where(bad, n, all_ids)
+    perm = lexsort2(all_ids, all_d)                   # id first, then d
+    sid = all_ids.gather(1, perm)
+    sd = all_d.gather(1, perm)
+    dup = torch.zeros_like(sid, dtype=torch.bool)
+    dup[:, 1:] = sid[:, 1:] == sid[:, :-1]
+    bad = dup | (sid >= n)
+    sd = torch.where(bad, BIG, sd)
+    sid = torch.where(bad, n, sid)
+    perm2 = lexsort2(sd, sid)[:, :K]                  # d first, tie by id
+    return sid.gather(1, perm2), sd.gather(1, perm2)
+
+
+def expand_merge_ref(q, nvecs, nids, fresh, beam_id, beam_d, beam_ck, n: int):
+    """Score the fresh pre-gathered neighbours (``lane_sq``; BIG and id n
+    for the others) and merge them into the (B, ef) beam by (distance, id),
+    ties in position order.  Returns (ids, dists, checked) (B, ef).  Port of
+    ``repro.kernels.ref.expand_merge_ref``; the plain version of
+    ``kernels.topk_kernel.fused_expand_merge``."""
+    ef = beam_id.shape[1]
+    d = torch.where(fresh, lane_sq(q, nvecs), BIG)
+    all_d = torch.cat([beam_d.float(), d], dim=1)
+    all_id = torch.cat([beam_id.to(torch.int32),
+                        torch.where(fresh, nids.to(torch.int32), n)], dim=1)
+    all_ck = torch.cat([beam_ck.to(torch.bool), ~fresh], dim=1)
+    take = lexsort2(all_d, all_id)[:, :ef]
+    return all_id.gather(1, take), all_d.gather(1, take), all_ck.gather(1, take)

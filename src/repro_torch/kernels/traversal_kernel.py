@@ -49,18 +49,6 @@ def _lib():
     return lib
 
 
-def _on_cpu(*ts: torch.Tensor) -> bool:
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"traversal operands on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"traversal kernels run on cuda or cpu, not {dev}")
-    return False
-
-
 def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
             n: int, *, width: int, visited_mode: str, rounds: int,
             want_fresh: bool):
@@ -136,7 +124,8 @@ def fused_traversal_hop(q: torch.Tensor, nbr_table: torch.Tensor,
     (B, n+1) exact bitmap.  Returns ``(new_id, new_d, new_ck, new_visited,
     fresh)`` with fresh (B, W·R) — the semantics of
     ``core.traversal.expansion_round`` minus the counters."""
-    if _on_cpu(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited):
+    if _build.on_cpu("traversal", q, nbr_table, vec_table, beam_id, beam_d,
+                     beam_ck, visited):
         return traversal_hop_ref(q, nbr_table, vec_table, beam_id, beam_d,
                                  beam_ck, visited, n, width=width,
                                  visited_mode=visited_mode)
@@ -158,7 +147,8 @@ def fused_pilot_search(q: torch.Tensor, nbr_table: torch.Tensor,
     unchecked entry.  Inputs as ``fused_traversal_hop``.  Returns
     ``(beam_id, beam_d, beam_ck, visited, n_dist, n_hops, n_exp)`` with the
     three counters as (B,) int32 deltas over the executed rounds."""
-    if _on_cpu(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited):
+    if _build.on_cpu("traversal", q, nbr_table, vec_table, beam_id, beam_d,
+                     beam_ck, visited):
         return pilot_search_ref(q, nbr_table, vec_table, beam_id, beam_d,
                                 beam_ck, visited, n, rounds=rounds,
                                 width=width, visited_mode=visited_mode)

@@ -11,7 +11,10 @@ import pytest
 import torch
 
 from repro_torch.core import bloom as TB
-from repro_torch.kernels import fes_kernel, ops, ref as TR, traversal_kernel
+from repro_torch.core import device_build as TDB
+from repro_torch.core import graph_build as TGB
+from repro_torch.kernels import (build_kernel, fes_kernel, ops, ref as TR,
+                                 topk_kernel, traversal_kernel)
 
 
 @pytest.fixture
@@ -100,3 +103,112 @@ def test_fes_select_on_card_matches_cpu(cuda):
     ids_g, d_g = ops.fes_select(*[a.to(cuda) for a in cpu], L=L)
     assert torch.equal(ids_g.cpu(), ids_c)
     torch.testing.assert_close(d_g.cpu(), d_c, rtol=1e-4, atol=1e-3)
+
+
+def _merge_inputs(seed, B, K, P, n, ties):
+    """Lists with sentinels, ids past n, cross-list duplicates at other
+    distances; with ``ties``, few distance levels including -0.0 beside
+    +0.0 and BIG, and whole BIG rows."""
+    rng = np.random.default_rng(seed)
+    cid = rng.integers(0, n + 2, (B, K)).astype(np.int32)
+    pid = rng.integers(0, n + 2, (B, P)).astype(np.int32)
+    pid[:, :4] = cid[:, :4]
+    if ties:
+        levels = np.array([0.0, -0.0, 0.25, 1.0, 3.0e38], np.float32)
+        cd = levels[rng.integers(0, 5, (B, K))]
+        pd_ = levels[rng.integers(0, 5, (B, P))]
+        cid[::7], cd[::7] = n, np.float32(3.0e38)
+    else:
+        cd = rng.uniform(0, 4, (B, K)).astype(np.float32)
+        pd_ = rng.uniform(0, 4, (B, P)).astype(np.float32)
+        pd_[:, :2] = cd[:, :2] + 0.5
+        pd_[:, 2:4] = np.maximum(cd[:, 2:4] - 0.25, 0)
+    return [torch.from_numpy(a) for a in (cid, cd, pid, pd_)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,P,ties", [(12, 16, 24, False),
+                                        (300, 64, 272, False),
+                                        (300, 64, 272, True),
+                                        (50, 8, 20, True)])
+def test_candidate_merge_kernel_bit_equal(cuda, B, K, P, ties):
+    n = 1000
+    t = [a.to(cuda) for a in _merge_inputs(B + K, B, K, P, n, ties)]
+    before = build_kernel.fused_candidate_merge.launches
+    gi, gd = build_kernel.fused_candidate_merge(*t, n)
+    assert build_kernel.fused_candidate_merge.launches == before + 1
+    wi, wd = TR.candidate_merge_ref(*t, n)
+    assert torch.equal(gi, wi)
+    assert torch.equal(gd.view(torch.int32), wd.view(torch.int32))
+    # the card's plain version agrees with the CPU's
+    ci, cd = TR.candidate_merge_ref(*(a.cpu() for a in t), n)
+    assert torch.equal(wi.cpu(), ci)
+    assert torch.equal(wd.cpu().view(torch.int32), cd.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,ef,d,sentinel,p_fresh", [
+    (64, 8, 16, 32, 3.0e38, 0.7), (128, 32, 128, 48, 3.0e38, 0.7),
+    (33, 16, 48, 96, 3.0e38, 0.7), (128, 32, 128, 48, np.inf, 0.1)])
+def test_expand_merge_kernel_bit_equal(cuda, B, R, ef, d, sentinel, p_fresh):
+    """Bit-equal: the kernel sums in the plain version's lane order.  With
+    +inf beam sentinels and few fresh candidates the sentinels reach the
+    first ef slots (the kernel's padding must not)."""
+    rng = np.random.default_rng(B + R)
+    n = 5000
+    bd = np.sort(rng.random((B, ef)).astype(np.float32) * 50, axis=1)
+    bid = rng.integers(0, n, (B, ef)).astype(np.int32)
+    bid[:, ef // 2:], bd[:, ef // 2:] = n, np.float32(sentinel)
+    arrs = (rng.normal(size=(B, d)).astype(np.float32),
+            rng.normal(size=(B, R, d)).astype(np.float32),
+            rng.integers(0, n, (B, R)).astype(np.int32),
+            rng.random((B, R)) < p_fresh, bid, bd, rng.random((B, ef)) > 0.5)
+    t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    before = topk_kernel.fused_expand_merge.launches
+    got = topk_kernel.fused_expand_merge(*t, n)
+    assert topk_kernel.fused_expand_merge.launches == before + 1
+    for g, w in zip(got, TR.expand_merge_ref(*t, n)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_expand_merge_kernel_refuses_what_it_cannot_hold(cuda):
+    """ef + R = 4,000 pads to 4,096 sort items, 64 KB per query: more than
+    the limit the kernel exports."""
+    B, R, ef, d, n = 2, 32, 3968, 8, 100
+    t = [torch.zeros((B, d), device=cuda),
+         torch.zeros((B, R, d), device=cuda),
+         torch.zeros((B, R), dtype=torch.int32, device=cuda),
+         torch.ones((B, R), dtype=torch.bool, device=cuda),
+         torch.full((B, ef), n, dtype=torch.int32, device=cuda),
+         torch.full((B, ef), 3.0e38, device=cuda),
+         torch.ones((B, ef), dtype=torch.bool, device=cuda)]
+    with pytest.raises(ValueError, match="shared memory"):
+        topk_kernel.fused_expand_merge(*t, n)
+
+
+@pytest.mark.cuda
+def test_nn_descent_build_on_card(cuda):
+    """build_graph(method="nn_descent", device="cuda") at 5,000 points:
+    the graph invariants, the merge through the kernel, and 10-NN list
+    recall of the card's NN-descent near the CPU's."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(5000, 32)).astype(np.float32)
+    n, R = len(x), 16
+    before = build_kernel.fused_candidate_merge.launches
+    g = TGB.build_graph(x, R, method="nn_descent", seed=0, device=cuda)
+    # seeding, the rounds and the reverse-edge pass
+    assert build_kernel.fused_candidate_merge.launches == before + TDB.ROUNDS + 2
+    nb = g.neighbors
+    real = nb < n
+    assert nb.shape == (n, R) and (nb >= 0).all() and (nb <= n).all()
+    assert not (real & (nb == np.arange(n)[:, None])).any()
+    for i in range(0, n, 7):
+        kept = nb[i][real[i]]
+        assert len(set(kept.tolist())) == len(kept)
+    ids_g, _ = TDB.nn_descent(x, 10, rounds=4, seed=1, device=cuda)
+    ids_c, _ = TDB.nn_descent(x, 10, rounds=4, seed=1, device="cpu")
+    exact, _ = TGB.brute_knn(x, 10)
+    rec = lambda ids: np.mean([len(set(a) & set(b)) / 10
+                               for a, b in zip(ids, exact)])
+    assert abs(rec(ids_g) - rec(ids_c)) <= 0.01

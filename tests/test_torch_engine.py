@@ -111,6 +111,8 @@ def test_no_cpu_fallback(built_index, small_dataset):
                                   built_index.reducer.d_primary)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         arrays_from_numpy(arrays)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TGB.build_graph(small_dataset.vectors[:100], 8, method="nn_descent")
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -118,8 +120,8 @@ def test_unported_options_raise(small_dataset):
     with pytest.raises(NotImplementedError, match="A5"):
         PilotANNIndex(IndexConfig(**dict(CFG, pilot_dtype="int8")),
                       small_dataset.vectors[:500], device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        TGB.build_graph(small_dataset.vectors[:100], 8, method="nn_descent")
+    with pytest.raises(ValueError, match="build method"):
+        TGB.build_graph(small_dataset.vectors[:100], 8, method="nope")
     with pytest.raises(NotImplementedError, match="A5"):
         arrays_from_numpy({"primary": np.zeros((3, 2), np.int8)}, "cpu")
 
