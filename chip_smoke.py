@@ -22,12 +22,24 @@ Phases, one line each (any failed check exits non-zero):
                card, at the shapes the main path gives it (K7 on one real
                NN-descent round of the index's vectors, K6 on a stage-①
                state), with times (CUDA events, median of 20 after
-               warm-up) and bounds.
+               warm-up) and bounds; then, for each quantized pilot dtype
+               (bf16, int8, int4, pq, encoded by ``set_pilot_dtype``), the
+               FES kernel of that entry encoding (K3 with a scale, K4, K5;
+               within 1e-4, same top-L ids) and K2/K1 on the index's own
+               encoded table from a real stage-① state (bit-equal).
   4. search  — all queries, in batches, through ``PilotANNIndex.search``
                (persistent and per-hop stage ①) and ``search_baseline``:
                recall@10 against exact neighbours computed on the card, QPS,
                mean stats, and each path's own launch counts (set to 0 just
                before it), held against the pattern that path must give.
+  5. quant   — ``set_pilot_dtype`` to bf16, int8, int4 and pq in turn (the
+               encode seconds, ``memory_report()``), then ``search`` with
+               persistent and per-hop stage ① over all queries: recall@10
+               (bf16/int8 within 0.01 of fp32, int4/pq >= 0.90), QPS, the
+               share of rows equal to the fp32 pilot's, launch counts per
+               path; pilot vector bytes >= 3.5x (int8) and >= 10x (pq)
+               below fp32; card against CPU path on 32 queries (int8, pq).
+               fp32 is restored at the end.
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU branch: without a CUDA
 device the script exits non-zero before printing any result.
@@ -48,6 +60,17 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 FULL_N = 1_000_000             # DEEP1M, the deployment this cell stands for
 T_START = time.perf_counter()
+
+
+QUANT = ("bfloat16", "int8", "int4", "pq")   # the quantized pilot dtypes
+# the FES kernel each entry encoding goes through, and the TPU kernel it
+# replaces
+FES_KERNEL = {"float32": "fes_distances", "bfloat16": "fes_distances",
+              "int8": "fes_distances", "int4": "fes_int4_distances",
+              "pq": "fes_pq_distances"}
+FES_REPLACES = {"fes_distances": "src/repro/kernels/fes_kernel.py:157",
+                "fes_int4_distances": "src/repro/kernels/fes_kernel.py:137",
+                "fes_pq_distances": "src/repro/kernels/fes_kernel.py:118"}
 
 
 class CheckFailed(Exception):
@@ -85,6 +108,31 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def same_bits(torch, got, want, what: str, names) -> None:
+    """Kernel outputs equal to the plain version's, float ones bit for
+    bit."""
+    for g, w, name in zip(got, want, names):
+        if g.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        check(torch.equal(g, w), f"{what}: {name} differ from the plain version")
+
+
+def topl_flips(torch, got, want, valid, L: int) -> int:
+    """Rows of two (r, QC, C) distance blocks whose top-L entry sets
+    differ, leaving out rows where the plain version's L-th and (L+1)-th
+    distances are a near-tie (within 1e-5 relative)."""
+    r, QC, C = want.shape
+    mask = ~valid[:, None, :]
+    g = got.masked_fill(mask, float("inf")).reshape(r * QC, C)
+    w = want.masked_fill(mask, float("inf")).reshape(r * QC, C)
+    gi = torch.sort(torch.topk(g, L, largest=False).indices, 1).values
+    wd, wi = torch.topk(w, L + 1, largest=False)
+    wi = torch.sort(wi[:, :L], 1).values
+    tie = ((wd[:, L] - wd[:, L - 1]).abs() <= 1e-5 * wd[:, L].abs()) \
+        | ~torch.isfinite(wd[:, L - 1])   # fewer than L valid entries
+    return int(((gi != wi).any(1) & ~tie).sum())
 
 
 def exact_topk(torch, x, q, k: int, exclude=None):
@@ -164,6 +212,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.core import device_build as DB
+    from repro_torch.core import quant as Q
     from repro_torch.core import traversal as T
     from repro_torch.core.engine import (IndexConfig, PilotANNIndex,
                                          recall_at_k)
@@ -452,6 +501,124 @@ def main() -> int:
                            bound_ms=bound1, bound_by="bytes",
                            library_ms=None))
 
+    # ---- 3 (continued). every quantized encoding, on the index's own
+    # encoded tables: the FES kernel of the encoding on the main path's
+    # grouped batch, K2 from a mid-search stage-① state, K1 from the FES
+    # start state; each held against its plain version on the card -------
+    fes_L = SearchParams().fes_L
+    for dt in QUANT:
+        t0 = time.perf_counter()
+        index.set_pilot_dtype(dt)
+        enc_s = time.perf_counter() - t0
+        A = index.arrays
+        vecq, evq = A["primary"], A["fes_entries"]
+        side = dict(vec_scale=A.get("primary_scale"),
+                    vec_codebook=A.get("primary_codebook"))
+        fside = dict(scale=A.get("fes_entries_scale"),
+                     codebook=A.get("fes_entries_codebook"))
+        row_b, side_b = Q.encoded_row_bytes(dp, dt), Q.side_bytes(dp, dt)
+
+        fes_fn = FES_KERNEL[dt]
+        got = fes_distances(qg, evq, **fside)
+        want = fes_distances_ref(qg, evq, **fside)
+        torch.cuda.synchronize()
+        errq = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-4, atol=1e-4 * d3),
+              f"{fes_fn}[{dt}] vs plain: max abs err {errq}")
+        n_flip = topl_flips(torch, got, want, A["fes_valid"], fes_L)
+        check(n_flip == 0, f"{fes_fn}[{dt}]: top-{fes_L} ids differ from the "
+              f"plain version away from a near-tie on {n_flip} rows")
+        msq = time_ms(torch, lambda: fes_distances(qg, evq, **fside))
+        plainq = time_ms(torch, lambda: fes_distances_ref(qg, evq, **fside))
+        bytesq = (4.0 * r_ * QC * d3 + r_ * C * row_b + side_b
+                  + 4.0 * r_ * QC * C)
+        if dt == "pq":
+            mk = A["fes_entries_codebook"].shape[1]
+            opsq = 2.0 * r_ * QC * mk * d3 + r_ * QC * C * evq.shape[2]
+        else:
+            opsq = 2.0 * r_ * QC * C * d3
+        boundq = 1e3 * max(opsq / FP32_FLOPS_PER_S, bytesq / HBM_BYTES_PER_S)
+        byq = ("operations" if opsq / FP32_FLOPS_PER_S > bytesq / HBM_BYTES_PER_S
+               else "bytes")
+        print(f"[kernels] {fes_fn} {dt} entries (r={r_}, QC={QC}, C={C}, "
+              f"d={d3}, {row_b} B/row; encoded in {enc_s:.2f} s with the "
+              f"primary rows) ok: max_abs_err {errq:.3g}, top-{fes_L} ids "
+              f"equal | {msq:.4f} ms vs plain {plainq:.4f} ms | bound "
+              f"{boundq:.4f} ms ({byq})", flush=True)
+        kernels.append(dict(name=(f"{fes_fn}[{dt}]" if fes_fn == "fes_distances"
+                                  else fes_fn), route="cuda",
+                            source="src/repro_torch/csrc/fes.cu",
+                            replaces=FES_REPLACES[fes_fn], path=f"search[{dt}]",
+                            max_abs_err=errq, ms=msq, plain_ms=plainq,
+                            bound_ms=boundq, bound_by=byq, library_ms=None))
+
+        entry_q, _ = ops.fes_select(qp, A["fes_centroids"], evq,
+                                    A["fes_entry_ids"], A["fes_valid"],
+                                    L=fes_L, entries_scale=fside["scale"],
+                                    entries_codebook=fside["codebook"])
+        spec = T.TraversalSpec(ef=ef)
+        st = T.init_state(spec, qp, entry_q, vecq, nk, **side)
+        for _ in range(3):
+            st = T.expansion_round(spec, st, qp, nbr, vecq, nk, **side)
+        hop_args = (qp, nbr, vecq, st.cand_id, st.cand_d, st.checked,
+                    st.visited, nk)
+        kout = fused_traversal_hop(*hop_args, **side)
+        rout = traversal_hop_ref(*hop_args, **side)
+        torch.cuda.synchronize()
+        same_bits(torch, kout, rout, f"K2[{dt}]",
+                  ("ids", "distances", "checked", "visited", "fresh"))
+        ms2q = time_ms(torch, lambda: fused_traversal_hop(*hop_args, **side))
+        plain2q = time_ms(torch, lambda: traversal_hop_ref(*hop_args, **side))
+        unchecked = ~st.checked & (st.cand_id < nk)
+        n_sel = int(torch.minimum(unchecked.sum(1),
+                                  torch.tensor(1, device=dev)).sum())
+        bytes2q = (int(rout[4].sum()) * row_b + n_sel * R * id_bytes
+                   + B * dp * 4 + side_b + 2 * beam_bytes + 2 * filt_bytes
+                   + B * R)
+        bound2q = 1e3 * bytes2q / HBM_BYTES_PER_S
+
+        st = T.init_state(spec, qp, entry_q, vecq, nk, **side)
+        k1_args = (qp, nbr, vecq, st.cand_id, st.cand_d, st.checked,
+                   st.visited, nk)
+        kres = fused_pilot_search(*k1_args, rounds=512, **side)
+        rres = pilot_search_ref(*k1_args, rounds=512, **side)
+        torch.cuda.synchronize()
+        same_bits(torch, kres, rres, f"K1[{dt}]",
+                  ("ids", "distances", "checked", "visited", "n_dist",
+                   "n_hops", "n_exp"))
+        ms1q = time_ms(torch, lambda: fused_pilot_search(*k1_args, rounds=512,
+                                                         **side))
+        plain1q = time_ms(torch, lambda: pilot_search_ref(
+            *k1_args, rounds=512, **side), reps=5, warmup=1)
+        bytes1q = (int(rres[4].sum()) * row_b + int(rres[6].sum()) * R * id_bytes
+                   + B * dp * 4 + side_b + 2 * beam_bytes + 2 * filt_bytes
+                   + B * 12)
+        bound1q = 1e3 * bytes1q / HBM_BYTES_PER_S
+        print(f"[kernels] K1/K2 {dt} pilot ({row_b} B/row + {side_b} B side, "
+              f"{id_bytes * 8}-bit ids, mean hops "
+              f"{float(rres[5].float().mean()):.1f}) ok: K2 (W=1) and K1 "
+              f"(B={B}, rounds<=512) ids, flags, visited bits, counters and "
+              f"distance bits equal to the plain versions | K1 {ms1q:.4f} ms "
+              f"vs plain {plain1q:.4f} ms, bound {bound1q:.5f} ms | K2 "
+              f"{ms2q:.4f} ms vs plain {plain2q:.4f} ms, bound {bound2q:.5f} "
+              f"ms (bytes) ({stamp()})", flush=True)
+        kernels.append(dict(name=f"fused_pilot_search[{dt}]", route="cuda",
+                            source="src/repro_torch/csrc/traversal.cu",
+                            replaces="src/repro/kernels/traversal_kernel.py:565",
+                            path=f"search[{dt}]", max_abs_err=0.0, ms=ms1q,
+                            plain_ms=plain1q, bound_ms=bound1q,
+                            bound_by="bytes", library_ms=None))
+        kernels.append(dict(name=f"fused_traversal_hop[{dt}]", route="cuda",
+                            source="src/repro_torch/csrc/traversal.cu",
+                            replaces="src/repro/kernels/traversal_kernel.py:486",
+                            path=f"search_per_hop[{dt}]", max_abs_err=0.0,
+                            ms=ms2q, plain_ms=plain2q, bound_ms=bound2q,
+                            bound_by="bytes", library_ms=None))
+        del kout, rout, kres, rres, hop_args, k1_args, st
+    index.set_pilot_dtype("float32")
+    A = index.arrays
+    torch.cuda.empty_cache()
+
     # ---- 4. the main path, end to end -----------------------------------
     gt = exact_topk(torch, torch.from_numpy(ds.vectors).to(dev),
                     torch.from_numpy(ds.queries).to(dev), 10)
@@ -478,7 +645,10 @@ def main() -> int:
         "search_baseline": none,
     }
     results = {}
-    for name, (fn, params) in variants.items():
+
+    def drive(name, fn, params, tag="search"):
+        """All queries through one path, its launch counts set to 0 just
+        before it and read just after."""
         ids, dists, stats, secs = [], [], [], 0.0
         reset_launch_counts()
         for s in range(0, args.queries, args.batch):
@@ -495,11 +665,20 @@ def main() -> int:
               f"{name}: malformed result")
         rec = recall_at_k(ids, gt, 10)
         results[name] = (ids, rec)
-        print(f"[search] {name}: recall@10 {rec:.4f} | {args.queries / secs:.1f} "
+        # a batch runs as many host rounds as its slowest query needs
+        rounds = {k: float(np.mean([stats[k][s:s + args.batch].max()
+                                    for s in range(0, args.queries, args.batch)]))
+                  for k in ("pilot_hops", "final_hops")}
+        print(f"[{tag}] {name}: recall@10 {rec:.4f} | {args.queries / secs:.1f} "
               f"QPS ({args.queries} queries, batches of {args.batch}, "
               f"{secs:.3f} s) | mean stats " + json.dumps(
                   {k: round(float(v.mean()), 2) for k, v in stats.items()})
-              + f" | launches {json.dumps(counts[name])}", flush=True)
+              + f" | rounds per batch (its slowest query, mean over batches) "
+              f"{json.dumps(rounds)} | launches {json.dumps(counts[name])}",
+              flush=True)
+
+    for name, (fn, params) in variants.items():
+        drive(name, fn, params)
     for name, pattern in expect.items():
         for k, (lo, hi) in pattern.items():
             got = counts[name][k]
@@ -527,16 +706,75 @@ def main() -> int:
           f"({stamp()})", flush=True)
     check(overlap >= 0.95, f"card and CPU paths disagree: overlap {overlap}")
 
+    # ---- 5. quant: the same index and queries with each quantized pilot,
+    # switched by set_pilot_dtype without a rebuild -----------------------
+    mem32 = index.memory_report()
+    vec32 = mem32["pilot_vec_bytes"] + mem32["pilot_fes_bytes"]
+    ids32, rec32 = results["search"]
+    for dt in QUANT:
+        t0 = time.perf_counter()
+        index.set_pilot_dtype(dt)
+        enc_s = time.perf_counter() - t0
+        mem = index.memory_report()
+        vec_b = mem["pilot_vec_bytes"] + mem["pilot_fes_bytes"]
+        print(f"[quant] {dt}: encoded in {enc_s:.2f} s | memory_report "
+              f"{json.dumps(mem)} | vector bytes {vec32} -> {vec_b} "
+              f"({vec32 / vec_b:.2f}x smaller) ({stamp()})", flush=True)
+        fes_fn = FES_KERNEL[dt]
+        for name, W in ((f"search[{dt}]", "fused_pilot_search"),
+                        (f"search_per_hop[{dt}]", "fused_traversal_hop")):
+            params = variants[name.split("[")[0]][1]
+            drive(name, index.search, params, tag="quant")
+            ids, rec = results[name]
+            same = float((ids == ids32).all(1).mean())
+            print(f"[quant] {name}: rows with the fp32 pilot's ids "
+                  f"{same:.4f}", flush=True)
+            got = counts[name]
+            per_batch = got[W] == n_batches if W == "fused_pilot_search" \
+                else got[W] >= n_batches
+            check(per_batch and got[fes_fn] == n_batches
+                  and all(v == 0 for k, v in got.items() if k not in (W, fes_fn)),
+                  f"{name}: launches {got}, expected {W} and {fes_fn} per batch")
+        check(np.array_equal(results[f"search[{dt}]"][0],
+                             results[f"search_per_hop[{dt}]"][0]),
+              f"{dt}: persistent and per-hop stage ① give different ids")
+        rec = results[f"search[{dt}]"][1]
+        if dt in ("bfloat16", "int8"):
+            check(abs(rec - rec32) <= 0.01,
+                  f"{dt}: recall@10 {rec} not within 0.01 of fp32's {rec32}")
+        else:
+            check(rec >= 0.90, f"{dt}: recall@10 {rec} below 0.90")
+        bar = {"int8": 3.5, "pq": 10.0}.get(dt)
+        check(bar is None or vec32 >= bar * vec_b,
+              f"{dt}: pilot vector bytes only {vec32 / vec_b:.2f}x smaller")
+        if dt in ("int8", "pq"):   # the card's path against the plain CPU path
+            small = PilotANNIndex.from_arrays(
+                index.cfg, {k: v.cpu() for k, v in index.arrays.items()},
+                index.reducer.V, index.reducer.d_primary, device="cpu")
+            cpu_ids, _, _ = small.search(ds.queries[:32], variants["search"][1])
+            del small
+            card_ids = results[f"search[{dt}]"][0][:32]
+            overlap = recall_at_k(card_ids, cpu_ids, 10)
+            print(f"[quant] {dt}: card vs plain CPU path on 32 queries: top-10 "
+                  f"overlap {overlap:.4f}, identical rows "
+                  f"{int((card_ids == cpu_ids).all(1).sum())}/32 ({stamp()})",
+                  flush=True)
+            check(overlap >= 0.95,
+                  f"{dt}: card and CPU paths disagree: overlap {overlap}")
+    index.set_pilot_dtype("float32")
+
     # each kernel's launches on the first path that must launch it (K7 on
     # the build, K1 and K3 on ``search``, K2 on the per-hop path; K6 on
-    # none); every path's count beside it
+    # none), the quantized rows on their own encoding's path; every path's
+    # count beside it
     own = {k: next((p for p, e in expect.items() if e[k][0] > 0), None)
            for k in counts["search"]}
     for k in kernels:
-        p = own[k["name"]]
+        fn = k["name"].split("[")[0]
+        p = k.get("path") or own[fn]
         k["path"] = p
-        k["launches"] = counts[p][k["name"]] if p else 0
-        k["launches_by_path"] = {q: c[k["name"]] for q, c in counts.items()}
+        k["launches"] = counts[p][fn] if p else 0
+        k["launches_by_path"] = {q: c[fn] for q, c in counts.items() if c[fn]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

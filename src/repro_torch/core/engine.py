@@ -15,6 +15,12 @@ eagerly on the index's device.  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; with no card and no explicit ``"cpu"`` they
 raise — there is no silent CPU fallback.
 
+The stage-① vector tables (primary rows and FES buckets) may be quantized
+(``IndexConfig.pilot_dtype``: float32, bfloat16, int8, int4 or pq,
+``core/quant.py``); the index keeps the host fp32 pilot rows, so
+``set_pilot_dtype`` re-encodes them without a rebuild, and
+``ResidencyPlanner`` solves the pilot knobs for a byte budget.
+
 ``arrays_from_numpy`` / ``PilotANNIndex.from_arrays`` carry an index built by
 the reference (its ``arrays`` dict and ``reducer.V``) into the port, so both
 packages can be run on identical index state.
@@ -22,6 +28,7 @@ packages can be run on identical index state.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -34,34 +41,40 @@ from repro_torch.core.devices import resolve_device
 from repro_torch.core.multistage import SearchParams
 
 
+# stage-① side arrays of the quantized encodings (scale rows, codebooks)
+SIDE_KEYS = ("primary_scale", "fes_entries_scale", "primary_codebook",
+             "fes_entries_codebook")
+
+
+def _to_tensor(a) -> torch.Tensor:
+    """A host array as a CPU tensor of the same dtype and bits.  bf16
+    arrays (the reference's ``ml_dtypes`` type, which ``torch.from_numpy``
+    refuses) cross as their 16-bit patterns."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()
+                                ).view(torch.bfloat16)
+    if not a.flags.writeable:              # e.g. a view of a jax array
+        a = a.copy()
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
 def arrays_from_numpy(arrays: Dict[str, np.ndarray],
                       device=None) -> Dict[str, torch.Tensor]:
-    """Copy a built ``arrays`` dict (numpy, or anything ``np.asarray``
-    takes — e.g. the reference's jax arrays) onto ``device``, keeping every
-    key and dtype.  Quantized pilot tables are refused (ROADMAP A5)."""
+    """Copy a built ``arrays`` dict (numpy, torch, or anything
+    ``np.asarray`` takes — e.g. the reference's jax arrays, quantized pilot
+    tables and their side arrays included) onto ``device``, keeping every
+    key, dtype and bit."""
     dev = resolve_device(device)
-    for k in ("primary_scale", "primary_codebook", "fes_entries_scale",
-              "fes_entries_codebook"):
-        if k in arrays:
-            raise NotImplementedError(f"quantized pilot array {k!r}: ROADMAP A5")
-    out = {}
-    for k, a in arrays.items():
-        a = np.asarray(a)
-        if not a.flags.writeable:          # e.g. a view of a jax array
-            a = a.copy()
-        if k in ("primary", "fes_entries") and a.dtype != np.float32:
-            raise NotImplementedError(
-                f"{k} stored as {a.dtype}: only float32 pilots are ported "
-                f"(ROADMAP A5)")
-        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    return out
+    return {k: _to_tensor(a).to(dev) for k, a in arrays.items()}
 
 
 @dataclass
 class IndexConfig:
-    """Build-time index knobs (the reference's, minus the jit-cache bound;
-    ``ResidencyPlanner`` and the quantized ``pilot_dtype`` values wait for
-    ROADMAP A5)."""
+    """Build-time index knobs (the reference's, minus the jit-cache
+    bound)."""
     R: int = 32                  # graph degree bound
     sample_ratio: float = 0.25   # subgraph node ratio (paper Table 3)
     svd_ratio: float = 0.5       # primary-dims ratio (paper Table 3)
@@ -71,6 +84,8 @@ class IndexConfig:
     # exact | clustered | auto (host) | nn_descent (on the index's device)
     build_method: str = "auto"
     seed: int = 0
+    # stage-① payload encoding: float32 | bfloat16 | int8 | int4 | pq
+    # (core/quant.py); stage ② then re-scores the pilot beam exactly
     pilot_dtype: str = "float32"
     # pilot-graph id width: auto (int16 when the compact id space fits,
     # else int32) | int16 | int32
@@ -134,7 +149,9 @@ class PilotANNIndex:
         pilot_nb = full_to_pilot[self.sub_graph.padded_table()[keep_ids]]
         pilot_nb = np.concatenate(
             [pilot_nb, np.full((1, cfg.R), nk, np.int32)], axis=0)
-        pilot_primary = np.concatenate(
+        # fp32 primary rows of the kept nodes (+ zero sentinel row), kept on
+        # the host so that set_pilot_dtype can re-encode without a rebuild
+        self._pilot_primary = np.concatenate(
             [rot[keep_ids][:, :dp], np.zeros((1, dp), np.float32)], axis=0)
 
         # --- FES (entries sampled from subgraph members; primary dims).
@@ -182,9 +199,8 @@ class PilotANNIndex:
             "coarse_pilot_ids": full_to_pilot[np.concatenate([coarse_ids, [n]])],
             "coarse_entry": np.array(
                 [graph_build.medoid(rot[coarse_ids])], np.int32),
-            "primary": pilot_primary.astype(np.float32),
-            "fes_entries": self.fes_index.entries.astype(np.float32),
         }, self.device)
+        self.arrays.update(self._quantized_pilot_arrays(cfg.pilot_dtype))
         secs["tables"] = time.perf_counter() - t0
 
         if cfg.pilot_budget_bytes is not None:
@@ -193,18 +209,23 @@ class PilotANNIndex:
                 raise ValueError(
                     f"pilot payload is {got} B, over the "
                     f"pilot_budget_bytes={cfg.pilot_budget_bytes} budget; "
-                    f"reduce n_entry / sample_ratio / svd_ratio")
+                    f"shrink it via ResidencyPlanner(n, d, R={cfg.R}, "
+                    f"n_entry={cfg.n_entry}).plan(budget).to_config(), or "
+                    f"reduce n_entry / raise fes_clusters (FES buckets), "
+                    f"or lower sample_ratio/svd_ratio/pilot_dtype directly")
 
     @classmethod
     def from_arrays(cls, cfg: IndexConfig, arrays: Dict[str, np.ndarray],
                     V: np.ndarray, d_primary: int, device=None
                     ) -> "PilotANNIndex":
         """An index over already-built state: the reference's ``arrays``
-        dict (the key list of ``multistage_search``) and its SVD rotation
-        ``reducer.V``.  No build artefacts besides those."""
+        dict (the key list of ``multistage_search``; quantized pilot tables
+        are taken as they are) and its SVD rotation ``reducer.V``.  No
+        build artefacts besides those, so ``set_pilot_dtype`` raises."""
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         self.cfg = cfg
+        self._pilot_primary = None
         self.arrays = arrays_from_numpy(arrays, self.device)
         self.reducer = svd.SVDReducer(
             V=np.ascontiguousarray(np.asarray(V), np.float32),
@@ -228,6 +249,49 @@ class PilotANNIndex:
             return np.int16 if nk + 1 <= i16_max else np.int32
         raise ValueError(f"pilot_id_dtype must be auto|int16|int32, "
                          f"got {pilot_id_dtype!r}")
+
+    def _quantized_pilot_arrays(self, pilot_dtype: str
+                                ) -> Dict[str, torch.Tensor]:
+        """Encode the stage-① vector tables (primary rows + FES buckets) on
+        the host and move them to the index's device: the scale rows
+        (int8/int4) or codebooks (pq) ride along as side arrays."""
+        pdata, pside = quant.quantize(self._pilot_primary, pilot_dtype)
+        fdata, fside = quant.quantize(self.fes_index.entries, pilot_dtype)
+        out = {"primary": pdata, "fes_entries": fdata}
+        if pside is not None:
+            kind = "codebook" if pilot_dtype == "pq" else "scale"
+            out[f"primary_{kind}"] = pside
+            out[f"fes_entries_{kind}"] = fside
+        return arrays_from_numpy(out, self.device)
+
+    def set_pilot_dtype(self, pilot_dtype: str) -> "PilotANNIndex":
+        """Re-encode the stage-① payloads in place (no graph or SVD
+        rebuild).  Re-checks ``pilot_budget_bytes``: on a violation the
+        previous encoding is restored and ValueError raised.  Returns
+        self."""
+        quant.check_pilot_dtype(pilot_dtype)
+        if self._pilot_primary is None:
+            raise ValueError("set_pilot_dtype needs the host fp32 pilot rows, "
+                             "which an index made by from_arrays does not "
+                             "keep")
+        prev = self.cfg.pilot_dtype
+        self._apply_pilot_dtype(pilot_dtype)
+        budget = self.cfg.pilot_budget_bytes
+        if budget is not None:
+            got = self.memory_report()["pilot_bytes"]
+            if got > budget:
+                self._apply_pilot_dtype(prev)
+                raise ValueError(
+                    f"set_pilot_dtype({pilot_dtype!r}) would grow the pilot "
+                    f"payload to {got} B, over pilot_budget_bytes={budget}; "
+                    f"encoding left at {prev!r}")
+        return self
+
+    def _apply_pilot_dtype(self, pilot_dtype: str) -> None:
+        self.cfg = dataclasses.replace(self.cfg, pilot_dtype=pilot_dtype)
+        for k in SIDE_KEYS:
+            self.arrays.pop(k, None)
+        self.arrays.update(self._quantized_pilot_arrays(pilot_dtype))
 
     # ------------------------------------------------------------------
     def rotate_queries(self, queries) -> torch.Tensor:
@@ -260,15 +324,18 @@ class PilotANNIndex:
 
     # ------------------------------------------------------------------
     def memory_report(self) -> Dict:
-        """Bytes by residence class (paper Table 3 accounting).
-        ``pilot_bytes`` is the stage-① payload: compact subgraph ids +
-        primary vectors + FES entry buckets."""
+        """Dtype-aware bytes by residence class (paper Table 3
+        accounting).  ``pilot_bytes`` is the stage-① payload: compact
+        subgraph ids + (possibly quantized) primary vectors + FES entry
+        buckets, the int8/int4 scale rows and pq codebooks included."""
         A = self.arrays
         nbytes = lambda k: (int(A[k].numel() * A[k].element_size())
                             if k in A else 0)
         pilot_graph = nbytes("sub_neighbors")
-        pilot_vec = nbytes("primary")
-        pilot_fes = nbytes("fes_entries")
+        pilot_vec = (nbytes("primary") + nbytes("primary_scale") +
+                     nbytes("primary_codebook"))
+        pilot_fes = (nbytes("fes_entries") + nbytes("fes_entries_scale") +
+                     nbytes("fes_entries_codebook"))
         pilot = pilot_graph + pilot_vec + pilot_fes
         full = (nbytes("full_neighbors") + nbytes("rot_vecs") +
                 nbytes("residual"))
@@ -282,6 +349,104 @@ class PilotANNIndex:
                 "pilot_nodes": self.n_pilot,
                 "d_primary": self.reducer.d_primary,
                 "device_bytes": sum(nbytes(k) for k in A)}
+
+
+# ---------------------------------------------------------------------------
+# Residency planning: solve the pilot knobs for a byte budget
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ResidencyPlan:
+    """One solved operating point; ``to_config()`` turns it into an
+    ``IndexConfig`` (geometry fields carried over from the planner)."""
+    sample_ratio: float
+    svd_ratio: float
+    pilot_dtype: str
+    est_pilot_bytes: int
+    budget_bytes: int
+    R: int
+    n_entry: int
+    fes_clusters: int
+    pilot_id_dtype: str = "auto"
+
+    @property
+    def fits(self) -> bool:
+        return self.est_pilot_bytes <= self.budget_bytes
+
+    def to_config(self, base: Optional[IndexConfig] = None,
+                  **overrides) -> IndexConfig:
+        """``base`` supplies the fields the plan does not model (seed,
+        build_method, coarse_ratio, ...); every byte-relevant field comes
+        from the plan, so the build-time budget check matches the
+        estimate.  ``overrides`` win last."""
+        return dataclasses.replace(
+            base or IndexConfig(), R=self.R, n_entry=self.n_entry,
+            fes_clusters=self.fes_clusters,
+            sample_ratio=self.sample_ratio, svd_ratio=self.svd_ratio,
+            pilot_dtype=self.pilot_dtype,
+            pilot_id_dtype=self.pilot_id_dtype,
+            pilot_budget_bytes=self.budget_bytes, **overrides)
+
+
+class ResidencyPlanner:
+    """Solve ``(sample_ratio, svd_ratio, pilot_dtype)`` for a stage-①
+    byte budget.  Among the feasible grid points it picks the
+    lexicographic max of ``(sample_ratio, svd_ratio, dtype fidelity)`` —
+    encoding fidelity goes first (fp32 → bf16 → int8 → int4 → pq), then
+    SVD-primary dims, then coverage.  If nothing fits, the smallest plan
+    comes back with ``fits == False``.
+
+    ``estimate()`` mirrors ``PilotANNIndex.memory_report()``: graph and
+    vector bytes exactly, and the FES term as an upper bound (the build
+    caps the bucket capacity with the same ``fes.fes_capacity_cap``)."""
+
+    SAMPLE_GRID = (0.5, 0.4, 0.33, 0.25, 0.2, 0.15, 0.1)
+    SVD_GRID = (0.75, 0.5, 0.33, 0.25)
+
+    def __init__(self, n: int, d: int, *, R: int = 32, n_entry: int = 8192,
+                 fes_clusters: int = 32, pilot_id_dtype: str = "auto"):
+        self.n, self.d = n, d
+        self.R, self.n_entry, self.fes_clusters = R, n_entry, fes_clusters
+        self.pilot_id_dtype = pilot_id_dtype
+
+    def estimate(self, sample_ratio: float, svd_ratio: float,
+                 pilot_dtype: str) -> Dict[str, int]:
+        """Estimated pilot bytes, broken down like ``memory_report()``."""
+        nk = max(1, int(round(sample_ratio * self.n)))
+        dp = max(1, min(self.d, int(round(svd_ratio * self.d))))
+        id_dt = PilotANNIndex._resolve_id_dtype(self.pilot_id_dtype, nk)
+        vb = quant.encoded_row_bytes(dp, pilot_dtype)
+        side = quant.side_bytes(dp, pilot_dtype)
+        graph = (nk + 1) * self.R * np.dtype(id_dt).itemsize
+        vec = (nk + 1) * vb + side
+        cap = fes.fes_capacity_cap(min(self.n_entry, nk), self.fes_clusters)
+        fes_b = self.fes_clusters * cap * vb + side
+        return {"graph": graph, "vec": vec, "fes": fes_b,
+                "total": graph + vec + fes_b}
+
+    def plan(self, pilot_budget_bytes: int, *,
+             sample_grid: Tuple[float, ...] = None,
+             svd_grid: Tuple[float, ...] = None,
+             dtypes: Tuple[str, ...] = quant.PILOT_DTYPES) -> ResidencyPlan:
+        best_key, best = None, None
+        fallback, fallback_est = None, None
+        for sr in sample_grid or self.SAMPLE_GRID:
+            for vr in svd_grid or self.SVD_GRID:
+                for dt in dtypes:
+                    est = self.estimate(sr, vr, dt)["total"]
+                    plan = ResidencyPlan(
+                        sample_ratio=sr, svd_ratio=vr, pilot_dtype=dt,
+                        est_pilot_bytes=est, budget_bytes=pilot_budget_bytes,
+                        R=self.R, n_entry=self.n_entry,
+                        fes_clusters=self.fes_clusters,
+                        pilot_id_dtype=self.pilot_id_dtype)
+                    if est <= pilot_budget_bytes:
+                        key = (sr, vr, quant.FIDELITY[dt])
+                        if best_key is None or key > best_key:
+                            best_key, best = key, plan
+                    elif fallback_est is None or est < fallback_est:
+                        fallback, fallback_est = plan, est
+        return best if best is not None else fallback
 
 
 def recall_at_k(ids: np.ndarray, gt: np.ndarray, k: int) -> float:

@@ -19,6 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import quant
 from repro_torch.core.graph_build import kmeans, pairwise_sq_dists
 
 INF = float("inf")
@@ -96,19 +97,23 @@ def topk_smallest(d: torch.Tensor, L: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def fes_select_ref(queries: torch.Tensor, centroids: torch.Tensor,
                    entries: torch.Tensor, entry_ids: torch.Tensor,
                    valid: torch.Tensor, L: int,
+                   entries_scale: torch.Tensor = None,
+                   entries_codebook: torch.Tensor = None,
                    tombstone: torch.Tensor = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route each query to its nearest centroid, score only that cluster's
     entries, return top-L (ids, sq-dists).
 
-    queries (B, d); centroids (r, d); entries (r, C, d) fp32 (quantized
-    entries wait for ROADMAP A5); -> (B, L) ids/dists.  ``tombstone``:
-    optional deletion bitmap in the entry-id space."""
+    queries (B, d); centroids (r, d) fp32; entries (r, C, ·) stored fp32,
+    bf16, int8 or int4 (``entries_scale`` (d,) for int8/int4) or pq codes
+    (``entries_codebook``); -> (B, L) ids/dists.  ``tombstone``: optional
+    deletion bitmap in the entry-id space."""
     if tombstone is not None:
         valid = mask_tombstoned(valid, entry_ids, tombstone)
     q = queries.float()
     route = torch.argmin(_xdist(q, centroids), dim=1)      # (B,)
-    ev = entries[route].float()                            # (B, C, d) gather
+    ev = quant.decode_rows(entries[route], entries_scale,   # (B, C, d)
+                           codebook=entries_codebook).float()
     d = _rowdist(q, ev).masked_fill(~valid[route], INF)    # (B, C)
     sd, idx = topk_smallest(d, L)
     return entry_ids[route].gather(1, idx), sd

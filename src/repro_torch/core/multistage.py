@@ -111,16 +111,18 @@ def refine_stage(arrays: Dict[str, torch.Tensor], params: SearchParams,
                  queries: torch.Tensor, cand_id: torch.Tensor,
                  cand_dp: torch.Tensor, visited: torch.Tensor = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Stage ②: exact re-rank of the pilot beam (fp32 pilot: the SVD
-    identity reuses the primary term), then a bounded traversal on the
-    compact subgraph with FULL vectors (neighbours from the compact table,
-    distances from ``rot_vecs`` via ``pilot_to_full``).
+    """Stage ②: exact re-rank of the pilot beam, then a bounded traversal
+    on the compact subgraph with FULL vectors (neighbours from the compact
+    table, distances from ``rot_vecs`` via ``pilot_to_full``).  For an fp32
+    pilot the SVD identity reuses the primary term; a quantized pilot's
+    beam distances carry its quantization error, so they are re-scored
+    from ``rot_vecs`` instead (and only that branch may run for int4/pq,
+    whose ``primary`` rows are packed).
 
     Returns ``(seed_id, seed_d, refine_dist)``: the refined beam mapped back
     to FULL ids + its exact distances (stage ③'s seed), and the per-query
     distance-computation count."""
     nk = arrays["pilot_to_full"].shape[0] - 1
-    dp = arrays["primary"].shape[1]
     ptf = arrays["pilot_to_full"].long()
     Bq = queries.shape[0]
     ptomb = arrays.get("pilot_tombstone")
@@ -128,9 +130,13 @@ def refine_stage(arrays: Dict[str, torch.Tensor], params: SearchParams,
         cand_id = T.sentinel_mask(ptomb, cand_id, nk)
     valid = cand_id < nk
     cand_full = ptf[cand_id.long()]
-    qr = queries[:, dp:]
-    d_res = T.sq_dists(qr, arrays["residual"][cand_full])
-    d_full = torch.where(valid, cand_dp + d_res, INF)
+    if arrays["primary"].dtype != torch.float32:   # quantized: exact re-score
+        d_full = torch.where(
+            valid, T.sq_dists(queries, arrays["rot_vecs"][cand_full]), INF)
+    else:                                          # exact: SVD identity
+        qr = queries[:, arrays["primary"].shape[1]:]
+        d_res = T.sq_dists(qr, arrays["residual"][cand_full])
+        d_full = torch.where(valid, cand_dp + d_res, INF)
     n_rerank = valid.sum(1, dtype=torch.int32)
 
     def dist2(qs, ids, fresh):
@@ -156,8 +162,10 @@ def multistage_search(arrays: Dict[str, torch.Tensor], params: SearchParams,
     the reference with ``engine.arrays_from_numpy``) —
       full_neighbors (n+1, R), rot_vecs (n+1, d), residual (n+1, dr);
       compact pilot tables sub_neighbors (nk+1, R) int16/int32,
-      primary (nk+1, dp) fp32, pilot_to_full (nk+1,); fes_centroids (r, d),
-      fes_entries (r, C, dp), fes_entry_ids (r, C) *pilot* ids,
+      primary (nk+1, ·) in any pilot encoding [+ primary_scale (dp,) or
+      primary_codebook (dp, m·ksub)], pilot_to_full (nk+1,);
+      fes_centroids (r, d), fes_entries (r, C, ·) [+ fes_entries_scale /
+      fes_entries_codebook], fes_entry_ids (r, C) *pilot* ids,
       fes_valid (r, C); coarse layer + pilot_default_entry.
     Optional ``tombstone`` (n+1,) / ``pilot_tombstone`` (nk+1,) deletion
     bitmaps are honoured as in the reference.
@@ -165,8 +173,11 @@ def multistage_search(arrays: Dict[str, torch.Tensor], params: SearchParams,
     Returns (ids (B, k), dists (B, k), stats)."""
     n = arrays["rot_vecs"].shape[0] - 1
     nk = arrays["pilot_to_full"].shape[0] - 1      # compact pilot id space
-    dp = quant.primary_dim(arrays["primary"], arrays.get("primary_scale"),
-                           codebook=arrays.get("primary_codebook"))
+    pilot_scale = arrays.get("primary_scale")
+    pilot_codebook = arrays.get("primary_codebook")
+    # true primary width: int4/pq rows are packed narrower than dp
+    dp = quant.primary_dim(arrays["primary"], pilot_scale,
+                           codebook=pilot_codebook)
     Bq = queries.shape[0]
     dev = queries.device
     stats: StatsDict = {}
@@ -181,13 +192,16 @@ def multistage_search(arrays: Dict[str, torch.Tensor], params: SearchParams,
     if params.use_fes:
         fes_args = (q_primary, arrays["fes_centroids"], arrays["fes_entries"],
                     arrays["fes_entry_ids"], arrays["fes_valid"])
+        fes_kw = dict(entries_scale=arrays.get("fes_entries_scale"),
+                      entries_codebook=arrays.get("fes_entries_codebook"),
+                      tombstone=ptomb)
         if dev.type == "cuda":
             from repro_torch.kernels import ops
             entry_pilot, _ = ops.fes_select(*fes_args, L=params.fes_L,
-                                            tombstone=ptomb)
+                                            **fes_kw)
         else:
             entry_pilot, _ = F.fes_select_ref(*fes_args, params.fes_L,
-                                              tombstone=ptomb)
+                                              **fes_kw)
         if not params.use_pilot:
             entry_full = ptf[entry_pilot.long()]
         # FES cost: one centroid pass + one cluster pass (counted per query)
@@ -217,7 +231,8 @@ def multistage_search(arrays: Dict[str, torch.Tensor], params: SearchParams,
                                 use_persistent=params.use_persistent_traversal)
         st1 = T.greedy_search(spec1, q_primary, arrays["sub_neighbors"],
                               arrays["primary"], nk, entry_pilot,
-                              tombstone=ptomb)
+                              vec_scale=pilot_scale,
+                              vec_codebook=pilot_codebook, tombstone=ptomb)
         stats["pilot_dist"] = st1.n_dist
         stats["pilot_hops"] = st1.n_hops
         stats["pilot_expanded"] = st1.n_exp

@@ -104,9 +104,13 @@ def init_state(spec: TraversalSpec, queries: torch.Tensor,
                entry_ids: torch.Tensor, vector_table: torch.Tensor, n: int,
                visited: Optional[torch.Tensor] = None,
                extra_id: Optional[torch.Tensor] = None,
-               extra_d: Optional[torch.Tensor] = None) -> SearchState:
+               extra_d: Optional[torch.Tensor] = None,
+               vec_scale: Optional[torch.Tensor] = None,
+               vec_codebook: Optional[torch.Tensor] = None) -> SearchState:
     """Build the initial beam from entry points (+ optionally pre-scored
-    candidates handed over from an earlier stage).
+    candidates handed over from an earlier stage).  ``vec_scale`` (int8 /
+    int4) and ``vec_codebook`` (pq) decode a quantized table
+    (``quant.decode_rows``, the identity for exact tables).
 
     ``vector_table`` is the padded ``(n+1, d)`` table (the reference takes it
     without its sentinel row and re-appends a zero row; an entry at the
@@ -115,7 +119,8 @@ def init_state(spec: TraversalSpec, queries: torch.Tensor,
     Bq = entry_ids.shape[0]
     entry_ids = entry_ids.to(torch.int32)
     valid = entry_ids < n
-    evecs = quant.decode_rows(vector_table[entry_ids.long()])  # (B, E, d)
+    evecs = quant.decode_rows(vector_table[entry_ids.long()], vec_scale,
+                              codebook=vec_codebook)      # (B, E, d)
     d = torch.where(valid, sq_dists(queries, evecs), INF)
     n_dist = valid.sum(1, dtype=torch.int32)
     if extra_id is not None:
@@ -165,7 +170,10 @@ def _frontier(state: SearchState, n: int, W: int):
 def expansion_round(spec: TraversalSpec, state: SearchState,
                     queries: torch.Tensor, neighbor_table: torch.Tensor,
                     vector_table: torch.Tensor, n: int,
-                    nbr_fn=None, dist_fn=None) -> SearchState:
+                    nbr_fn=None, dist_fn=None,
+                    vec_scale: Optional[torch.Tensor] = None,
+                    vec_codebook: Optional[torch.Tensor] = None
+                    ) -> SearchState:
     """One synchronous W-wide neighbour-expansion round for the whole batch.
 
     Visited filtering is *sequential per frontier* — frontier ``w`` is
@@ -176,18 +184,21 @@ def expansion_round(spec: TraversalSpec, state: SearchState,
 
     ``nbr_fn(u) -> (B, R)`` and ``dist_fn(queries, ids, fresh)`` override
     the table lookups (stage ② scores full vectors through the compact
-    ids this way)."""
+    ids this way); ``vec_scale``/``vec_codebook`` decode a quantized
+    ``vector_table``."""
     if spec.use_pallas and nbr_fn is None and dist_fn is None:
         return _kernel_round(spec, state, queries, neighbor_table,
-                             vector_table, n)
+                             vector_table, n, vec_scale, vec_codebook)
     return expand_round(spec, state, queries, neighbor_table, vector_table,
-                        n, nbr_fn, dist_fn)[0]
+                        n, nbr_fn, dist_fn, vec_scale, vec_codebook)[0]
 
 
 def expand_round(spec: TraversalSpec, state: SearchState,
                  queries: torch.Tensor, neighbor_table: torch.Tensor,
                  vector_table: torch.Tensor, n: int, nbr_fn=None,
-                 dist_fn=None) -> Tuple[SearchState, torch.Tensor]:
+                 dist_fn=None, vec_scale: Optional[torch.Tensor] = None,
+                 vec_codebook: Optional[torch.Tensor] = None
+                 ) -> Tuple[SearchState, torch.Tensor]:
     """The plain body of ``expansion_round``; also returns the (B, W·R)
     ``fresh`` mask (the per-hop kernel's extra output)."""
     W = spec.frontier_width
@@ -214,7 +225,8 @@ def expand_round(spec: TraversalSpec, state: SearchState,
     fresh = torch.cat(fresh_w, dim=1)
 
     if dist_fn is None:
-        nvecs = quant.decode_rows(vector_table[nbrs.long()])  # (B, W·R, d)
+        nvecs = quant.decode_rows(vector_table[nbrs.long()], vec_scale,
+                                  codebook=vec_codebook)  # (B, W·R, d)
         d = torch.where(fresh, sq_dists(queries, nvecs), INF)
     else:
         d = torch.where(fresh, dist_fn(queries, nbrs, fresh), INF)
@@ -239,7 +251,9 @@ def expand_round(spec: TraversalSpec, state: SearchState,
 
 def _kernel_round(spec: TraversalSpec, state: SearchState,
                   queries: torch.Tensor, neighbor_table: torch.Tensor,
-                  vector_table: torch.Tensor, n: int) -> SearchState:
+                  vector_table: torch.Tensor, n: int,
+                  vec_scale: Optional[torch.Tensor] = None,
+                  vec_codebook: Optional[torch.Tensor] = None) -> SearchState:
     """Fused expansion round: the whole W-wide hop body is one kernel
     launch; only the counters are kept here."""
     from repro_torch.kernels.traversal_kernel import fused_traversal_hop
@@ -248,7 +262,8 @@ def _kernel_round(spec: TraversalSpec, state: SearchState,
     new_id, new_d, new_ck, visited, fresh = fused_traversal_hop(
         queries, neighbor_table, vector_table, state.cand_id, state.cand_d,
         state.checked, state.visited, n, width=spec.frontier_width,
-        visited_mode=spec.visited_mode)
+        visited_mode=spec.visited_mode, vec_scale=vec_scale,
+        vec_codebook=vec_codebook)
     return SearchState(
         cand_id=new_id, cand_d=new_d, checked=new_ck, visited=visited,
         n_dist=state.n_dist + fresh.sum(1, dtype=torch.int32),
@@ -265,11 +280,15 @@ def greedy_search(spec: TraversalSpec, queries: torch.Tensor,
                   extra_id: Optional[torch.Tensor] = None,
                   extra_d: Optional[torch.Tensor] = None,
                   nbr_fn=None, dist_fn=None,
+                  vec_scale: Optional[torch.Tensor] = None,
+                  vec_codebook: Optional[torch.Tensor] = None,
                   tombstone: Optional[torch.Tensor] = None) -> SearchState:
     """Greedy best-first search (Algorithm 1), batched, W-wide per round.
 
     neighbor_table: (n+1, R) padded adjacency (row n = sentinel row).
-    vector_table:   (n+1, d) vectors with a zero row at n.
+    vector_table:   (n+1, d) vectors with a zero row at n, stored fp32,
+    bf16, int8, nibble-packed int4 or pq codes (``core/quant.py``); pass
+    ``vec_scale`` for int8/int4 and ``vec_codebook`` for pq.
     tombstone: optional (n+1,) bool deletion bitmap; tombstoned ids are
     sentinel-masked out of the adjacency, the entries and the handed-over
     beam before the search starts.
@@ -288,7 +307,8 @@ def greedy_search(spec: TraversalSpec, queries: torch.Tensor,
             extra_id = extra_id.masked_fill(dead, n)
             extra_d = extra_d.masked_fill(dead, INF)
     state = init_state(spec, queries, entry_ids, vector_table, n,
-                       visited=visited, extra_id=extra_id, extra_d=extra_d)
+                       visited=visited, extra_id=extra_id, extra_d=extra_d,
+                       vec_scale=vec_scale, vec_codebook=vec_codebook)
 
     if (spec.use_pallas and spec.use_persistent and nbr_fn is None
             and dist_fn is None):
@@ -297,7 +317,8 @@ def greedy_search(spec: TraversalSpec, queries: torch.Tensor,
         nid, nd, nck, nvis, d_dist, d_hops, d_exp = fused_pilot_search(
             queries, neighbor_table, vector_table, state.cand_id,
             state.cand_d, state.checked, state.visited, n, rounds=rounds,
-            width=spec.frontier_width, visited_mode=spec.visited_mode)
+            width=spec.frontier_width, visited_mode=spec.visited_mode,
+            vec_scale=vec_scale, vec_codebook=vec_codebook)
         return SearchState(cand_id=nid, cand_d=nd, checked=nck,
                            visited=nvis, n_dist=state.n_dist + d_dist,
                            n_hops=state.n_hops + d_hops,
@@ -306,7 +327,8 @@ def greedy_search(spec: TraversalSpec, queries: torch.Tensor,
     round_fn = partial(expansion_round, spec, queries=queries,
                        neighbor_table=neighbor_table,
                        vector_table=vector_table, n=n,
-                       nbr_fn=nbr_fn, dist_fn=dist_fn)
+                       nbr_fn=nbr_fn, dist_fn=dist_fn, vec_scale=vec_scale,
+                       vec_codebook=vec_codebook)
     if iters is not None:
         for _ in range(iters):
             state = round_fn(state)

@@ -4,14 +4,17 @@ Nothing here builds or imports CUDA code at import time: the wrappers build
 ``csrc/`` at their first call on a CUDA tensor (``_build.py``)."""
 
 from repro_torch.kernels.build_kernel import fused_candidate_merge
-from repro_torch.kernels.fes_kernel import fes_distances
+from repro_torch.kernels.fes_kernel import (fes_distances,
+                                            fes_int4_distances,
+                                            fes_pq_distances)
 from repro_torch.kernels.ops import fes_select
 from repro_torch.kernels.topk_kernel import fused_expand_merge
 from repro_torch.kernels.traversal_kernel import (fused_pilot_search,
                                                   fused_traversal_hop)
 
 KERNELS = (fused_pilot_search, fused_traversal_hop, fes_distances,
-           fused_expand_merge, fused_candidate_merge)
+           fes_int4_distances, fes_pq_distances, fused_expand_merge,
+           fused_candidate_merge)
 
 
 def launch_counts() -> dict:
@@ -23,6 +26,7 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["KERNELS", "fes_distances", "fes_select", "fused_candidate_merge",
+__all__ = ["KERNELS", "fes_distances", "fes_int4_distances",
+           "fes_pq_distances", "fes_select", "fused_candidate_merge",
            "fused_expand_merge", "fused_pilot_search", "fused_traversal_hop",
            "launch_counts", "reset_launch_counts"]

@@ -116,8 +116,9 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 def on_cpu(what: str, *ts) -> bool:
     """True when every operand lies on the CPU (the wrapper then runs its
     plain version), False when all are on one CUDA device; raises on a mix
-    or on another device type."""
-    devs = {t.device for t in ts}
+    or on another device type.  None operands (absent options) are
+    skipped."""
+    devs = {t.device for t in ts if t is not None}
     if len(devs) != 1:
         raise ValueError(f"{what} operands on several devices: {devs}")
     dev = devs.pop()
@@ -133,7 +134,8 @@ def next_pow2(x: int) -> int:
 
 
 def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    """The device pointer of a tensor, or a null pointer for None."""
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
 def stream_of(t) -> ctypes.c_void_p:

@@ -1,11 +1,11 @@
 """Wrappers around the port's kernels.
 
 ``fes_select`` is the card's FES path: route → group queries by cluster
-(one stable sort) → dense distance kernel (``fes_kernel.fes_distances``) →
-mask → top-L → scatter back to query order.  Same ids as
-``core.fes.fes_select_ref``.  Port of ``repro.kernels.ops.fes_select``,
-without the TPU's 128-lane padding of C and d (the CUDA kernel masks its
-ragged edges).
+(one stable sort) → distance kernel (``fes_kernel.fes_distances``: K3, or
+K4/K5 for int4/pq entries) → mask → top-L → scatter back to query order.
+Same ids as ``core.fes.fes_select_ref``.  Port of
+``repro.kernels.ops.fes_select``, without the TPU's 128-lane padding of C
+and d (the CUDA kernels mask their ragged edges).
 """
 
 from __future__ import annotations
@@ -53,9 +53,14 @@ def group_queries(queries: torch.Tensor, centroids: torch.Tensor, qc: int
 def fes_select(queries: torch.Tensor, centroids: torch.Tensor,
                entries: torch.Tensor, entry_ids: torch.Tensor,
                valid: torch.Tensor, *, L: int, qc: Optional[int] = None,
+               entries_scale: Optional[torch.Tensor] = None,
+               entries_codebook: Optional[torch.Tensor] = None,
                tombstone: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """queries (B, d); centroids (r, d); entries (r, C, d) fp32.  Returns
+    """queries (B, d); centroids (r, d) fp32 (routing stays fp32); entries
+    (r, C, ·) in any pilot encoding, at their stored (packed) width:
+    fp32/bf16/int8 with an optional ``entries_scale`` (d,), int4 with
+    ``entries_scale`` (d,), pq codes with ``entries_codebook``.  Returns
     (ids (B, L), sq-dists (B, L)) — top-L entries of each query's routed
     cluster, ties toward the lower entry index.  ``qc``: per-cluster query
     capacity (defaults to B — always safe).  ``tombstone``: optional
@@ -66,7 +71,8 @@ def fes_select(queries: torch.Tensor, centroids: torch.Tensor,
     r, C, _ = entries.shape
     qc = qc or B
     q_grouped, q_at_slot = group_queries(queries, centroids, qc)
-    dist = fes_distances(q_grouped, entries)                         # (r, qc, C)
+    dist = fes_distances(q_grouped, entries, scale=entries_scale,
+                         codebook=entries_codebook)                 # (r, qc, C)
     dist = dist.masked_fill(~valid[:, None, :], INF).reshape(r * qc, C)
     sd, idx = topk_smallest(dist, L)
     rows = torch.arange(r * qc, device=dist.device) // qc

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's kernels (dense fp32 encoding).
+"""Plain PyTorch versions of the port's kernels.
 
 Port of ``repro.kernels.ref``.  These are what the kernel wrappers run on
 CPU tensors, and what ``chip_smoke.py`` holds each CUDA kernel against on
@@ -12,7 +12,9 @@ merge does no arithmetic and is bit-equal to both.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.core import quant
 from repro_torch.core import traversal as T
 
 LANES = 32
@@ -27,8 +29,8 @@ def lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ops in a fixed order, so the kernel and this plain version give the same
     bits on any device.  ``a`` and ``b`` broadcast."""
     pad = (-a.shape[-1]) % LANES
-    a = torch.nn.functional.pad(a.float(), (0, pad)).unflatten(-1, (-1, LANES))
-    b = torch.nn.functional.pad(b.float(), (0, pad)).unflatten(-1, (-1, LANES))
+    a = F.pad(a.float(), (0, pad)).unflatten(-1, (-1, LANES))
+    b = F.pad(b.float(), (0, pad)).unflatten(-1, (-1, LANES))
     acc = a[..., 0, :] * b[..., 0, :]
     for c in range(1, a.shape[-2]):
         acc = acc + a[..., c, :] * b[..., c, :]
@@ -39,15 +41,66 @@ def lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc[..., 0]
 
 
-def fes_distances_ref(q_grouped: torch.Tensor,
-                      entries: torch.Tensor) -> torch.Tensor:
-    """(r, QC, d) x (r, C, d) -> (r, QC, C) squared euclidean, fp32, as
-    ``qn + en − 2·dot`` (no clamp, like the reference kernel)."""
+def fes_distances_ref(q_grouped: torch.Tensor, entries: torch.Tensor, *,
+                      scale: torch.Tensor = None,
+                      codebook: torch.Tensor = None) -> torch.Tensor:
+    """(r, QC, d) x (r, C, ·) -> (r, QC, C) squared euclidean, fp32, no
+    clamp (like the reference kernel).  Entries are fp32, bf16 or int8
+    (``scale`` (d,) multiplies int8 codes), nibble-packed int4 (``scale``
+    wider than the stored rows: unpacked to 2·hp, scale padded with 1.0,
+    queries with zeros) or pq codes (``codebook`` (d, m·ksub): ``qn +
+    Σ_s lut[s·ksub + code_s]``, s ascending, with ``quant.pq_lut``)."""
     q = q_grouped.float()
-    e = entries.float()
+    if codebook is not None:                              # K5: pq
+        lut = quant.pq_lut(q.reshape(-1, q.shape[-1]), codebook)
+        lut = lut.reshape(q.shape[:2] + lut.shape[-1:])   # (r, QC, m·ksub)
+        m = entries.shape[-1]
+        ksub = lut.shape[-1] // m
+        shape = q.shape[:2] + entries.shape[1:2]          # (r, QC, C)
+        acc = (q * q).sum(-1)[..., :, None].expand(shape)
+        for s in range(m):                                # s ascending
+            col = ksub * s + entries[:, None, :, s].long()
+            acc = acc + lut.gather(2, col.expand(shape))
+        return acc
+    q = pad_query(q, entries, scale)
+    e = decode_lanes(entries, scale)
     qn = (q * q).sum(-1)[..., :, None]
     en = (e * e).sum(-1)[..., None, :]
     return qn + en - 2.0 * torch.einsum("rqd,rcd->rqc", q, e)
+
+
+def _decoded_width(table: torch.Tensor, scale: torch.Tensor = None) -> int:
+    packed = scale is not None and table.shape[-1] < scale.shape[-1]
+    return 2 * table.shape[-1] if packed else table.shape[-1]
+
+
+def decode_lanes(rows: torch.Tensor, scale: torch.Tensor = None
+                 ) -> torch.Tensor:
+    """Rows of a dense or int4 table as the kernels decode them: fp32 at
+    the decoded width, one multiply by the scale per element where there
+    is a scale.  int4 rows unpack to both nibble planes (2·hp dims; the
+    scale pads with 1.0 and the pad nibbles decode to exact zeros)."""
+    if _decoded_width(rows, scale) != rows.shape[-1]:
+        rows = quant.int4_unpack(rows)
+    e = rows.float()
+    return e if scale is None else e * pad_scale(scale, rows)
+
+
+def _pad_to(x: torch.Tensor, width: int, value: float = 0.0) -> torch.Tensor:
+    x = x.float()
+    return x if x.shape[-1] == width else F.pad(x, (0, width - x.shape[-1]),
+                                                value=value)
+
+
+def pad_query(q: torch.Tensor, table: torch.Tensor,
+              scale: torch.Tensor = None) -> torch.Tensor:
+    """fp32 queries zero-padded to the decoded width of ``table``."""
+    return _pad_to(q, _decoded_width(table, scale))
+
+
+def pad_scale(scale: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """An fp32 scale row one-padded to the decoded width of ``table``."""
+    return _pad_to(scale, _decoded_width(table, scale), value=1.0)
 
 
 def lane_sq(q: torch.Tensor, nv: torch.Tensor) -> torch.Tensor:
@@ -58,11 +111,42 @@ def lane_sq(q: torch.Tensor, nv: torch.Tensor) -> torch.Tensor:
                            - 2.0 * lane_dot(qf[:, None, :], nv), 0.0)
 
 
-def lane_sq_dists(vec_table: torch.Tensor):
-    """``dist_fn`` for ``core.traversal.expand_round``: ``lane_sq`` of the
-    gathered rows."""
-    def dist_fn(q, ids, fresh):
-        return lane_sq(q, vec_table[ids.long()])          # (B, W·R)
+def lane_pq_lut(q: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """``quant.pq_lut`` with its two sums in ``lane_dot``'s order: column j
+    is ``lane_dot(cb_j, cb_j) − 2·lane_dot(q, cb_j)`` — the table the
+    traversal kernel builds in shared memory.  (B, m·ksub)."""
+    cbt = codebook.float().T                              # (m·ksub, dp)
+    return lane_dot(cbt, cbt)[None, :] - 2.0 * lane_dot(
+        q.float()[:, None, :], cbt[None])
+
+
+def pilot_dist_fn(q: torch.Tensor, vec_table: torch.Tensor,
+                  vec_scale: torch.Tensor = None,
+                  vec_codebook: torch.Tensor = None):
+    """``dist_fn`` for ``core.traversal.expand_round`` over a stored table
+    of any encoding, in the traversal kernel's arithmetic: dense and int4
+    rows decode (``decode_lanes``) and go through ``lane_sq``; pq rows
+    score ``max(qn + Σ_s lut[s·ksub + code_s], 0)`` with s ascending on
+    ``lane_pq_lut``.  The LUT and padded query are made once, for ``q``."""
+    if vec_codebook is not None:                          # pq
+        lut = lane_pq_lut(q, vec_codebook)
+        qf = q.float()
+        qn = lane_dot(qf, qf)[:, None]
+        m = vec_table.shape[1]
+        ksub = lut.shape[1] // m
+
+        def dist_fn(_q, ids, fresh):
+            codes = vec_table[ids.long()].long()          # (B, M, m)
+            acc = qn.expand(ids.shape)
+            for s in range(m):
+                acc = acc + lut.gather(1, ksub * s + codes[..., s])
+            return torch.clamp_min(acc, 0.0)
+        return dist_fn
+
+    qd = pad_query(q, vec_table, vec_scale)
+
+    def dist_fn(_q, ids, fresh):
+        return lane_sq(qd, decode_lanes(vec_table[ids.long()], vec_scale))
     return dist_fn
 
 
@@ -75,29 +159,31 @@ def _state(beam_id, beam_d, beam_ck, visited) -> T.SearchState:
 
 def traversal_hop_ref(q, nbr_table, vec_table, beam_id, beam_d, beam_ck,
                       visited, n: int, *, width: int = 1,
-                      visited_mode: str = "bloom"):
+                      visited_mode: str = "bloom", vec_scale=None,
+                      vec_codebook=None):
     """One full W-wide expansion round (top-W frontier select, gather,
     sequential-per-frontier visited filter, distances, stable beam merge):
-    ``core.traversal``'s round body with ``lane_sq_dists``.  Returns
+    ``core.traversal``'s round body with ``pilot_dist_fn``.  Returns
     (new_id, new_d, new_ck, new_visited, fresh) with fresh (B, W·R)."""
     spec = T.TraversalSpec(ef=beam_id.shape[1], visited_mode=visited_mode,
                            frontier_width=width)
+    dist_fn = pilot_dist_fn(q, vec_table, vec_scale, vec_codebook)
     st, fresh = T.expand_round(spec, _state(beam_id, beam_d, beam_ck, visited),
-                               q, nbr_table, vec_table, n,
-                               dist_fn=lane_sq_dists(vec_table))
+                               q, nbr_table, vec_table, n, dist_fn=dist_fn)
     return st.cand_id, st.cand_d, st.checked, st.visited, fresh
 
 
 def pilot_search_ref(q, nbr_table, vec_table, beam_id, beam_d, beam_ck,
                      visited, n: int, *, rounds: int, width: int = 1,
-                     visited_mode: str = "bloom"):
+                     visited_mode: str = "bloom", vec_scale=None,
+                     vec_codebook=None):
     """Run up to ``rounds`` W-wide expansion rounds (stopping at
     convergence) of ``traversal_hop_ref``'s round.  Returns (beam_id, beam_d,
     beam_ck, visited, n_dist, n_hops, n_exp) with the counters as (B,)
     int32 deltas, like the persistent kernel."""
     spec = T.TraversalSpec(ef=beam_id.shape[1], visited_mode=visited_mode,
                            frontier_width=width)
-    dist_fn = lane_sq_dists(vec_table)
+    dist_fn = pilot_dist_fn(q, vec_table, vec_scale, vec_codebook)
     st = T.run_to_convergence(
         lambda s: T.expand_round(spec, s, q, nbr_table, vec_table, n,
                                  dist_fn=dist_fn)[0],

@@ -4,15 +4,20 @@ whole search, hand-written CUDA for Hopper (``csrc/traversal.cu``).
 Replaces ``repro.kernels.traversal_kernel``: ``fused_traversal_hop``
 (``_hop_kernel``, pallas_call at ``traversal_kernel.py:486``) and
 ``fused_pilot_search`` (``_persistent_kernel``, pallas_call at ``:565``),
-dense fp32 encoding.  The bf16/int8/int4/pq branches wait for ROADMAP A5.
+with every vector-table encoding of ``core/quant.py``: fp32, bf16 and int8
+(dense, with an optional per-dim scale), nibble-packed int4 (scale row
+wider than the stored rows; queries and scale padded to 2·hp here, as the
+reference's ``_encoding_operands`` pads them) and pq codes (codebook; the
+kernel builds the per-query lookup table).
 
 Both wrappers run the kernel for CUDA tensors and the plain version beside
 it (``kernels/ref.py``) for CPU tensors; there is no fallback from one to the
 other.  Each counts its launches in ``<wrapper>.launches``.
 
 Bound and design (details in the source): bytes — the neighbour-id rows of
-the expanded candidates and the vector rows of the fresh ones, plus the
-beam and filter in and out, over 3.35 TB/s.  One block per query keeps the
+the expanded candidates and the encoded vector rows of the fresh ones
+(``quant.encoded_row_bytes``), plus the beam and filter in and out, over
+3.35 TB/s.  One block per query keeps the
 beam, the packed filter and the merge buffers in shared memory, so only
 those gathers touch device memory; what remains per round is latency.
 
@@ -27,44 +32,86 @@ distance-sorted, ascending, with sentinels (+inf) last.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import quant
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import pilot_search_ref, traversal_hop_ref
+from repro_torch.kernels.ref import (pad_query, pad_scale, pilot_search_ref,
+                                     traversal_hop_ref)
+
+# kernel encoding codes (``Enc`` in csrc/traversal.cu)
+ENCODINGS = ("float32", "bfloat16", "int8", "int4", "pq")
+_DENSE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _lib():
     lib = _build.load("traversal")
     if lib.pilot_traversal.argtypes is None:
         lib.pilot_traversal_smem_bytes.restype = ctypes.c_size_t
-        lib.pilot_traversal_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.pilot_traversal_smem_bytes.argtypes = [ctypes.c_int] * 7
         lib.pilot_traversal_smem_limit.restype = ctypes.c_size_t
         lib.pilot_traversal_smem_limit.argtypes = []
         lib.pilot_traversal.restype = ctypes.c_int
         lib.pilot_traversal.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-            + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+            + [ctypes.c_void_p])
     return lib
+
+
+def encoding_operands(q: torch.Tensor, vec_table: torch.Tensor,
+                      vec_scale: Optional[torch.Tensor],
+                      vec_codebook: Optional[torch.Tensor]):
+    """Classify the stored table and build the kernel's operands:
+    ``(encoding name, q (B, dq) fp32, scale (dq,) fp32 or None, codebook
+    (dp, m·ksub) fp32 or None, ksub)``.  Raises on a table the kernel does
+    not take."""
+    dp = q.shape[1]
+    enc = quant.table_encoding(vec_table, vec_scale, codebook=vec_codebook)
+    q = q.float()
+    if enc == "pq":
+        m = vec_table.shape[1]
+        cb = vec_codebook.float().contiguous()
+        if (vec_table.dtype != torch.int8 or cb.dim() != 2 or cb.shape[0] != dp
+                or cb.shape[1] % m):
+            raise ValueError(f"pq: codes (n+1, m) int8 and codebook (dp, m·ksub)"
+                             f" with dp={dp}; got {tuple(vec_table.shape)} "
+                             f"{vec_table.dtype}, {tuple(cb.shape)}")
+        return "pq", q.contiguous(), None, cb, cb.shape[1] // m
+    if vec_scale is not None and (vec_scale.dim() != 1 or vec_scale.shape[0] != dp):
+        raise ValueError(f"scale must be ({dp},), got {tuple(vec_scale.shape)}")
+    if enc == "int4":
+        if vec_table.dtype != torch.int8 or 2 * vec_table.shape[1] - dp not in (0, 1):
+            raise ValueError(f"int4 tables are (n+1, ceil(dp/2)) packed int8 with "
+                             f"dp={dp}, got {tuple(vec_table.shape)} {vec_table.dtype}")
+        return ("int4", pad_query(q, vec_table, vec_scale).contiguous(),
+                pad_scale(vec_scale, vec_table).contiguous(), None, 0)
+    if vec_table.dtype not in _DENSE:
+        raise TypeError(f"vector table must be float32|bfloat16|int8, got "
+                        f"{vec_table.dtype}")
+    if vec_table.shape[1] != dp:
+        raise ValueError(f"vector rows of width {vec_table.shape[1]} for "
+                         f"queries of width {dp}")
+    scale = None if vec_scale is None else vec_scale.float().contiguous()
+    return (ENCODINGS[_DENSE[vec_table.dtype]], q.contiguous(), scale, None, 0)
 
 
 def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
             n: int, *, width: int, visited_mode: str, rounds: int,
-            want_fresh: bool):
-    Bq, dp = q.shape
+            want_fresh: bool, vec_scale=None, vec_codebook=None):
+    Bq = q.shape[0]
     N1, R = nbr_table.shape
     ef = beam_id.shape[1]
     vbits = visited.shape[1]
     if visited_mode not in ("bloom", "exact"):
         raise ValueError(f"visited_mode must be bloom|exact, got {visited_mode!r}")
-    if vec_table.dtype != torch.float32:
-        raise NotImplementedError("only dense fp32 vector tables are ported "
-                                  "(quantized pilots: ROADMAP A5)")
     if nbr_table.dtype not in (torch.int16, torch.int32):
         raise TypeError(f"neighbour table must be int16|int32, got {nbr_table.dtype}")
-    if vec_table.shape != (N1, dp) or N1 < n + 1:
-        raise ValueError(f"tables must be (n+1, R) / (n+1, dp) with n={n}: "
+    if vec_table.shape[0] != N1 or N1 < n + 1:
+        raise ValueError(f"tables must have n+1={n + 1} rows: "
                          f"{tuple(nbr_table.shape)}, {tuple(vec_table.shape)}")
     if not (nbr_table.is_contiguous() and vec_table.is_contiguous()):
         raise ValueError("neighbour and vector tables must be contiguous")
@@ -72,8 +119,13 @@ def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
         raise ValueError(f"exact visited bitmap must have n+1={n + 1} bits, got {vbits}")
     if width < 1 or rounds < 0:
         raise ValueError(f"width >= 1 and rounds >= 0, got {width}, {rounds}")
+    enc, qk, scale, cb, ksub = encoding_operands(q, vec_table, vec_scale,
+                                                 vec_codebook)
+    dq = qk.shape[1]
+    lut_width = cb.shape[1] if cb is not None else 0
     lib = _lib()
-    smem = lib.pilot_traversal_smem_bytes(dp, ef, width, R, vbits)
+    smem = lib.pilot_traversal_smem_bytes(dq, ef, width, R, vbits,
+                                          int(scale is not None), lut_width)
     limit = lib.pilot_traversal_smem_limit()
     if smem > limit:
         raise ValueError(f"traversal state needs {smem} B of shared memory per "
@@ -81,7 +133,6 @@ def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
                          f"bloom filter instead of an exact bitmap of {vbits} bits")
 
     dev = q.device
-    q = q.float().contiguous()
     bid = beam_id.to(torch.int32).contiguous()
     bd = beam_d.float().contiguous()
     bck = beam_ck.to(torch.bool).contiguous()
@@ -96,15 +147,13 @@ def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
            else torch.zeros((Bq, 3), dtype=torch.int32, device=dev))
     if Bq == 0:
         return oid, od, ock, ovis, fresh, cnt
-    null = ctypes.c_void_p(0)
     rc = lib.pilot_traversal(
-        _build.ptr(q), _build.ptr(nbr_table), nbr_table.element_size(),
-        _build.ptr(vec_table), _build.ptr(bid), _build.ptr(bd),
+        _build.ptr(qk), _build.ptr(nbr_table), nbr_table.element_size(),
+        _build.ptr(vec_table), ENCODINGS.index(enc), vec_table.shape[1],
+        _build.ptr(scale), _build.ptr(cb), ksub, _build.ptr(bid), _build.ptr(bd),
         _build.ptr(bck), _build.ptr(vis), _build.ptr(oid), _build.ptr(od),
-        _build.ptr(ock), _build.ptr(ovis),
-        _build.ptr(fresh) if fresh is not None else null,
-        _build.ptr(cnt) if cnt is not None else null,
-        Bq, dp, n, R, ef, width, vbits, int(visited_mode == "exact"), rounds,
+        _build.ptr(ock), _build.ptr(ovis), _build.ptr(fresh), _build.ptr(cnt),
+        Bq, dq, n, R, ef, width, vbits, int(visited_mode == "exact"), rounds,
         _build.stream_of(q))
     _build.check(lib, rc, "pilot_traversal launch")
     return oid, od, ock, ovis, fresh, cnt
@@ -114,24 +163,32 @@ def fused_traversal_hop(q: torch.Tensor, nbr_table: torch.Tensor,
                         vec_table: torch.Tensor, beam_id: torch.Tensor,
                         beam_d: torch.Tensor, beam_ck: torch.Tensor,
                         visited: torch.Tensor, n: int, *, width: int = 1,
-                        visited_mode: str = "bloom"
+                        visited_mode: str = "bloom",
+                        vec_scale: Optional[torch.Tensor] = None,
+                        vec_codebook: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, ...]:
     """One W-wide expansion round.
 
     q (B, dp) fp32; nbr_table (n+1, R) int16/int32 with sentinel row n;
-    vec_table (n+1, dp) fp32 with a zero row at n; beam_* (B, ef) sorted
+    vec_table with a zero row at n: (n+1, dp) fp32, bf16 or int8
+    (``vec_scale`` (dp,) optional), (n+1, ceil(dp/2)) int8 nibble-packed
+    int4 (``vec_scale`` (dp,)), or (n+1, m) int8 pq codes
+    (``vec_codebook`` (dp, m·ksub)); beam_* (B, ef) sorted
     beam (+inf sentinel distances); visited (B, n_bits) bloom filter or
     (B, n+1) exact bitmap.  Returns ``(new_id, new_d, new_ck, new_visited,
     fresh)`` with fresh (B, W·R) — the semantics of
     ``core.traversal.expansion_round`` minus the counters."""
     if _build.on_cpu("traversal", q, nbr_table, vec_table, beam_id, beam_d,
-                     beam_ck, visited):
+                     beam_ck, visited, vec_scale, vec_codebook):
         return traversal_hop_ref(q, nbr_table, vec_table, beam_id, beam_d,
                                  beam_ck, visited, n, width=width,
-                                 visited_mode=visited_mode)
+                                 visited_mode=visited_mode,
+                                 vec_scale=vec_scale,
+                                 vec_codebook=vec_codebook)
     oid, od, ock, ovis, fresh, _ = _launch(
         q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited, n,
-        width=width, visited_mode=visited_mode, rounds=1, want_fresh=True)
+        width=width, visited_mode=visited_mode, rounds=1, want_fresh=True,
+        vec_scale=vec_scale, vec_codebook=vec_codebook)
     fused_traversal_hop.launches += int(q.shape[0] > 0)
     return oid, od, ock, ovis, fresh
 
@@ -140,7 +197,9 @@ def fused_pilot_search(q: torch.Tensor, nbr_table: torch.Tensor,
                        vec_table: torch.Tensor, beam_id: torch.Tensor,
                        beam_d: torch.Tensor, beam_ck: torch.Tensor,
                        visited: torch.Tensor, n: int, *, rounds: int,
-                       width: int = 1, visited_mode: str = "bloom"
+                       width: int = 1, visited_mode: str = "bloom",
+                       vec_scale: Optional[torch.Tensor] = None,
+                       vec_codebook: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, ...]:
     """Persistent stage-① search: up to ``rounds`` W-wide expansion rounds
     in one launch, each query's block exiting once its beam has no
@@ -148,14 +207,16 @@ def fused_pilot_search(q: torch.Tensor, nbr_table: torch.Tensor,
     ``(beam_id, beam_d, beam_ck, visited, n_dist, n_hops, n_exp)`` with the
     three counters as (B,) int32 deltas over the executed rounds."""
     if _build.on_cpu("traversal", q, nbr_table, vec_table, beam_id, beam_d,
-                     beam_ck, visited):
+                     beam_ck, visited, vec_scale, vec_codebook):
         return pilot_search_ref(q, nbr_table, vec_table, beam_id, beam_d,
                                 beam_ck, visited, n, rounds=rounds,
-                                width=width, visited_mode=visited_mode)
+                                width=width, visited_mode=visited_mode,
+                                vec_scale=vec_scale,
+                                vec_codebook=vec_codebook)
     oid, od, ock, ovis, _, cnt = _launch(
         q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited, n,
         width=width, visited_mode=visited_mode, rounds=rounds,
-        want_fresh=False)
+        want_fresh=False, vec_scale=vec_scale, vec_codebook=vec_codebook)
     fused_pilot_search.launches += int(q.shape[0] > 0)
     return oid, od, ock, ovis, cnt[:, 0], cnt[:, 1], cnt[:, 2]
 

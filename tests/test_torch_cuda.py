@@ -13,6 +13,7 @@ import torch
 from repro_torch.core import bloom as TB
 from repro_torch.core import device_build as TDB
 from repro_torch.core import graph_build as TGB
+from repro_torch.core import quant as TQ
 from repro_torch.kernels import (build_kernel, fes_kernel, ops, ref as TR,
                                  topk_kernel, traversal_kernel)
 
@@ -74,9 +75,73 @@ def test_traversal_kernel_refuses_what_it_cannot_hold(cuda):
     big = torch.zeros((4, 3_000_000), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         traversal_kernel.fused_traversal_hop(*t[:6], big, n)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(TypeError, match="float32|bfloat16|int8"):
         traversal_kernel.fused_traversal_hop(
-            t[0], t[1], t[2].to(torch.bfloat16), *t[3:], n)
+            t[0], t[1], t[2].to(torch.float16), *t[3:], n)
+
+
+def _encode(x, dtype):
+    """(table, vec_scale, vec_codebook) as CPU tensors."""
+    data, side = TQ.quantize(x, dtype)
+    data = data if isinstance(data, torch.Tensor) else torch.from_numpy(data)
+    side = None if side is None else torch.from_numpy(side)
+    return (data, None, side) if dtype == "pq" else (data, side, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "int4", "pq"])
+@pytest.mark.parametrize("id_dtype", [np.int16, np.int32])
+def test_traversal_kernels_every_encoding_bit_equal(cuda, dtype, id_dtype):
+    """K2 (W 1 and 3) and K1 on bf16, int8, int4 and pq tables: ids, flags,
+    visited bits, fresh masks, counters and distance bits equal to the
+    plain version.  The int4 table holds codes -7 and 7 in both nibble
+    planes, d odd (one pad nibble)."""
+    arrs, n = _hop_inputs(29, 16, 32, 47, "bloom", seed=3, id_dtype=id_dtype)
+    vec, scale, cb = _encode(arrs[2].numpy(), dtype)
+    if dtype == "int4":
+        codes = TQ.int4_unpack(vec)
+        for plane in (codes[:, :vec.shape[1]], codes[:, vec.shape[1]:47]):
+            assert (plane == -7).any() and (plane == 7).any()
+    t = [a.to(cuda) for a in arrs[:2]] + [vec.to(cuda)] + [
+        a.to(cuda) for a in arrs[3:]]
+    side = dict(vec_scale=None if scale is None else scale.to(cuda),
+                vec_codebook=None if cb is None else cb.to(cuda))
+    for W in (1, 3):
+        before = traversal_kernel.fused_traversal_hop.launches
+        got = traversal_kernel.fused_traversal_hop(*t, n, width=W, **side)
+        want = TR.traversal_hop_ref(*t, n, width=W, **side)
+        assert traversal_kernel.fused_traversal_hop.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    before = traversal_kernel.fused_pilot_search.launches
+    got = traversal_kernel.fused_pilot_search(*t, n, rounds=128, width=2, **side)
+    want = TR.pilot_search_ref(*t, n, rounds=128, width=2, **side)
+    assert traversal_kernel.fused_pilot_search.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,counter", [
+    ("bfloat16", "fes_distances"), ("int8", "fes_distances"),
+    ("int4", "fes_int4_distances"), ("pq", "fes_pq_distances")])
+def test_fes_kernels_every_encoding_match_plain(cuda, dtype, counter):
+    """K3 with bf16/int8 entries, K4 (int4) and K5 (pq) against the plain
+    version within 1e-4, ragged shapes, each launch counted on its own
+    wrapper."""
+    rng = np.random.default_rng(4)
+    qg = torch.from_numpy(rng.normal(size=(5, 70, 47)).astype(np.float32))
+    ev, scale, cb = _encode(rng.normal(size=(5, 130, 47)).astype(np.float32),
+                            dtype)
+    kw = dict(scale=scale, codebook=cb)
+    want = TR.fes_distances_ref(qg, ev, **kw)
+    wrapper = getattr(fes_kernel, counter)
+    before = wrapper.launches
+    got = fes_kernel.fes_distances(
+        qg.to(cuda), ev.to(cuda),
+        **{k: None if v is None else v.to(cuda) for k, v in kw.items()})
+    assert wrapper.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * 47)
 
 
 @pytest.mark.cuda

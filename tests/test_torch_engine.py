@@ -116,14 +116,22 @@ def test_no_cpu_fallback(built_index, small_dataset):
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_unported_options_raise(small_dataset):
-    with pytest.raises(NotImplementedError, match="A5"):
-        PilotANNIndex(IndexConfig(**dict(CFG, pilot_dtype="int8")),
+def test_unported_options_raise(built_index, small_dataset):
+    """Every pilot_dtype of the reference is ported; what lies outside the
+    reference's option sets raises, and so does re-encoding an index that
+    holds no host pilot rows."""
+    with pytest.raises(ValueError, match="pilot_dtype"):
+        PilotANNIndex(IndexConfig(**dict(CFG, pilot_dtype="fp8")),
                       small_dataset.vectors[:500], device="cpu")
     with pytest.raises(ValueError, match="build method"):
         TGB.build_graph(small_dataset.vectors[:100], 8, method="nope")
-    with pytest.raises(NotImplementedError, match="A5"):
-        arrays_from_numpy({"primary": np.zeros((3, 2), np.int8)}, "cpu")
+    carried = PilotANNIndex.from_arrays(
+        IndexConfig(**CFG), dict(built_index.arrays), built_index.reducer.V,
+        built_index.reducer.d_primary, device="cpu")
+    with pytest.raises(ValueError, match="from_arrays"):
+        carried.set_pilot_dtype("int8")
+    assert arrays_from_numpy({"primary": np.zeros((3, 2), np.int8)},
+                             "cpu")["primary"].dtype == torch.int8
 
 
 def test_preset_dataset_parity():
