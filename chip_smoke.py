@@ -40,6 +40,21 @@ Phases, one line each (any failed check exits non-zero):
                path; pilot vector bytes >= 3.5x (int8) and >= 10x (pq)
                below fp32; card against CPU path on 32 queries (int8, pq).
                fp32 is restored at the end.
+  6. rag     — ``RagPipeline`` over the same deep-1M index with the
+               generator ``tinyllama-1.1b`` at full width (22 layers, d_model
+               2048, 32/4 heads, head dim 64, d_ff 5632, vocab 32000, bf16,
+               random weights from ``--seed``, on the card): K8
+               (flash attention) against its plain version at the path's
+               shape (B 8, S 1024, bf16, causal; 3e-2) and at a non-causal
+               fp32 shape with D 128 and Sq != Sk (1e-4), with times beside
+               F.scaled_dot_product_attention (measured only) and the bound;
+               the full-width forward of 8 requests x 1024 tokens with K8
+               and with the plain attention (hidden-state error, top-4
+               retrieval ids equal on >= 0.95 of the rows); 4 x 256 tokens
+               teacher-forced through decode_step against the forward's
+               logits (top-1 >= 0.95); ``generate`` of 4 requests x 256
+               tokens, 8 new tokens (retrieve and search ms, decode
+               tokens/s, K8 launched 22 times: one embed).
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU branch: without a CUDA
 device the script exits non-zero before printing any result.
@@ -54,10 +69,12 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense on the tensor cores
 FULL_N = 1_000_000             # DEEP1M, the deployment this cell stands for
 T_START = time.perf_counter()
 
@@ -165,16 +182,17 @@ def list_recall(torch, x_pad, ids, k: int = 10, sample: int = 1000,
     return float(np.mean([len(set(a) & set(b)) / k for a, b in zip(got, gt)]))
 
 
-def profile_batch(torch, name, fn, queries, params) -> None:
-    """Trace one batch: kernel time on the card over the wall time of the
-    call (device busy share) and the kernels that take most of it."""
+def profile_call(torch, name, fn) -> None:
+    """Trace one call of ``fn()``: kernel time on the card over the wall
+    time of the call (device busy share) and the kernels that take most of
+    it."""
     from torch.profiler import ProfilerActivity, profile
-    fn(queries, params)                                   # warm
+    fn()                                                  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(queries, params)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name = {}
@@ -189,6 +207,210 @@ def profile_batch(torch, name, fn, queries, params) -> None:
               f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top), flush=True)
 
 
+def rag_phase(torch, np, args, index, counts) -> dict:
+    """Phase 6: K8 against its plain version, the full-width forward with
+    K8 and with the plain attention, prefill against decode, and
+    ``RagPipeline.generate``.  Returns K8's row of the kernels line."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.multistage import SearchParams
+    from repro_torch.kernels import (flash_attention, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import (decode_step, forward, init_caches,
+                                    init_params, unembed)
+    from repro_torch.models import layers as TL
+    from repro_torch.serving import RagPipeline
+
+    dev = index.arrays["rot_vecs"].device
+    cfg = get_config("tinyllama-1.1b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    n_norm = (2 * cfg.n_layers + 1) * cfg.d_model
+    print(f"[rag] weights: {cfg.name} (layers {cfg.n_layers}, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head dim "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}) param_count() {cfg.param_count():,} + norms "
+          f"{n_norm:,} = {n_par:,} parameters, {n_bytes / 1e9:.3f} GB on the "
+          f"card, made from seed {args.seed} in "
+          f"{time.perf_counter() - t0:.1f} s ({stamp()})", flush=True)
+    check(n_par == cfg.param_count() + n_norm,
+          f"rag: {n_par} parameters, expected {cfg.param_count() + n_norm}")
+
+    # K8 against its plain version: the path's shape, then a non-causal
+    # fp32 one with D 128 and Sq != Sk
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def qkv(Bq, Sq, Sk, H, Hkv, D, dtype):
+        return [torch.randn((Bq, S, h, D), generator=g, device=dev).to(dtype)
+                for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv))]
+
+    Bq, S, H, Hkv, D = 8, 1024, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    errs = []
+    for shape, dtype, causal, tol in (
+            ((Bq, S, S, H, Hkv, D), torch.bfloat16, True, 3e-2),
+            ((2, 384, 640, 16, 4, 128), torch.float32, False, 1e-4)):
+        q, k, v = qkv(*shape, dtype)
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        errs.append(err)
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"K8 {shape} {dtype} causal={causal}: max abs err {err}")
+        print(f"[rag] K8 flash_attention (B, Sq, Sk, H, Hkv, D) = {shape}, "
+              f"{str(dtype)[6:]}, causal={causal}: max_abs_err {err:.3g} "
+              f"(atol/rtol {tol:g}) ok", flush=True)
+        del q, k, v, got, want
+    q, k, v = qkv(Bq, S, S, H, Hkv, D, torch.bfloat16)
+    ms8 = time_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+    plain8 = time_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib8 = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    # causal work: S·(S+1)/2 (q, k) pairs per (b, h), 2·D operations each
+    # for q·k and for p·v; bytes: q, k, v read once, o written once
+    flops8 = 2.0 * Bq * H * S * (S + 1) * D
+    bytes8 = 2.0 * (2 * Bq * S * H * D + 2 * Bq * S * Hkv * D)
+    by8 = ("operations" if flops8 / BF16_FLOPS_PER_S > bytes8 / HBM_BYTES_PER_S
+           else "bytes")
+    bound8 = 1e3 * max(flops8 / BF16_FLOPS_PER_S, bytes8 / HBM_BYTES_PER_S)
+    print(f"[rag] K8 at the path's shape (B {Bq}, S {S}, H {H}, Hkv {Hkv}, D "
+          f"{D}, bf16, causal): {ms8:.4f} ms vs plain {plain8:.4f} ms vs "
+          f"F.scaled_dot_product_attention {lib8:.4f} ms | bound {bound8:.4f} "
+          f"ms ({by8}: {flops8 / 1e9:.2f} GFLOP at {BF16_FLOPS_PER_S / 1e12:g} "
+          f"TFLOP/s bf16 dense, {bytes8 / 1e6:.1f} MB at "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s)", flush=True)
+    del q, k, v, qt, kt, vt
+
+    # the full-width forward with K8 and with the plain attention, and the
+    # top-4 retrieval of each over deep-1M
+    rng = np.random.default_rng(args.seed)
+    req = rng.integers(0, cfg.vocab_size, (Bq, S)).astype(np.int32)
+    # the pipeline's search knobs (k 4, ef 64, ef_pilot 64), with stage ①
+    # in the persistent kernel K1 as on phase 4's main path
+    rag = RagPipeline(index=index, params=params, cfg=cfg,
+                      search_params=SearchParams(
+                          k=4, ef=64, ef_pilot=64,
+                          use_persistent_traversal=True))
+
+    def plain():
+        """The model's attention through K8's plain version instead."""
+        return mock.patch.object(TL, "flash_attention", flash_attention_ref)
+
+    forward(params, cfg, req[:1, :64])                      # warm
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h8, _ = forward(params, cfg, req)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    counts["rag_forward"] = launch_counts()
+    with plain():
+        t0 = time.perf_counter()
+        hp, _ = forward(params, cfg, req)
+        torch.cuda.synchronize()
+        fwd_plain_s = time.perf_counter() - t0
+    check(counts["rag_forward"]["flash_attention"] == cfg.n_layers,
+          f"rag forward: K8 launched {counts['rag_forward']['flash_attention']}"
+          f" times, expected {cfg.n_layers}")
+    check(bool(torch.isfinite(h8.float()).all()), "rag forward: non-finite")
+    rel = float((h8.float() - hp.float()).norm() / hp.float().norm())
+    del h8, hp
+    ids8, _ = rag.retrieve(req)
+    with plain():
+        idsp, _ = rag.retrieve(req)
+    same4 = float(np.mean([set(a) == set(b) for a, b in zip(ids8, idsp)]))
+    print(f"[rag] full-width forward, {Bq} requests x {S} tokens: {fwd_s:.3f} s "
+          f"with K8 ({counts['rag_forward']['flash_attention']} launches), "
+          f"{fwd_plain_s:.3f} s with the plain attention | hidden-state "
+          f"relative error (K8 vs plain) {rel:.3g} | top-4 ids over deep-1M "
+          f"equal on {same4:.4f} of the rows ({stamp()})", flush=True)
+    check(same4 >= 0.95, f"rag: K8 and plain forwards retrieve other top-4 "
+          f"ids on {1 - same4:.4f} of the rows")
+
+    # prefill against decode at full width
+    Bd, Sd = 4, 256
+    tok = rng.integers(0, cfg.vocab_size, (Bd, Sd)).astype(np.int32)
+    h, _ = forward(params, cfg, tok)
+    full = unembed(params, cfg, h)
+    caches = init_caches(params, cfg, Bd, Sd + 1)
+    step = torch.empty_like(full)
+    t0 = time.perf_counter()
+    for t in range(Sd):
+        lg, caches = decode_step(params, cfg, tok[:, t:t + 1], caches, t)
+        step[:, t] = lg[:, 0]
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    top1 = float((full.argmax(-1) == step.argmax(-1)).float().mean())
+    drel = float((full - step).abs().mean() / full.abs().mean())
+    print(f"[rag] prefill vs decode, {Bd} x {Sd} tokens teacher-forced "
+          f"through decode_step ({dec_s:.2f} s, {Bd * Sd / dec_s:.1f} tokens/s)"
+          f": top-1 agreement {top1:.4f}, mean relative logit error "
+          f"{drel:.3g} ({stamp()})", flush=True)
+    check(top1 >= 0.95, f"rag: prefill/decode top-1 agreement {top1}")
+    del h, full, step, caches
+
+    # generate: retrieve (embed + search), stepped prefill, 8 new tokens
+    query = rng.integers(0, cfg.vocab_size, (Bd, Sd)).astype(np.int32)
+
+    def context_tokens_for(i: int) -> np.ndarray:
+        return np.random.default_rng(i).integers(
+            0, cfg.vocab_size, Sd).astype(np.int32)
+
+    rag.retrieve(query)                                     # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = rag.embed_to_corpus_dim(query)
+    embed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids_s, _, _ = index.search(emb, rag.search_params)
+    search_s = time.perf_counter() - t0
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, ids = rag.generate(query, context_tokens_for)
+    gen_s = time.perf_counter() - t0
+    counts["rag"] = launch_counts()
+    n_steps = Sd - 1 + rag.max_new_tokens
+    decode_s = gen_s - embed_s - search_s
+    print(f"[rag] generate, {Bd} requests x {Sd} tokens, {rag.max_new_tokens} "
+          f"new: {gen_s:.3f} s | retrieve {1e3 * (embed_s + search_s):.1f} ms "
+          f"(embed {1e3 * embed_s:.1f} ms, search {1e3 * search_s:.1f} ms) | "
+          f"decode {n_steps} steps of {Bd} tokens in about {decode_s:.2f} s "
+          f"(generate less retrieve), {Bd * n_steps / decode_s:.1f} tokens/s "
+          f"| launches {json.dumps(counts['rag'])} ({stamp()})", flush=True)
+    check(out.shape == (Bd, rag.max_new_tokens)
+          and ((out >= 0) & (out < cfg.vocab_size)).all(),
+          "rag: generated tokens outside the vocabulary")
+    check(np.array_equal(ids, ids_s), "rag: generate retrieved other ids")
+    check(counts["rag"]["flash_attention"] == cfg.n_layers,
+          f"rag: K8 launched {counts['rag']['flash_attention']} times in "
+          f"generate, expected {cfg.n_layers} (one embed)")
+    check(counts["rag"]["fused_pilot_search"] == 1
+          and counts["rag"]["fes_distances"] == 1,
+          f"rag: search kernels {counts['rag']}")
+    if args.profile:
+        caches = init_caches(params, cfg, Bd, Sd + 1)
+        profile_call(torch, "rag embed (4 x 256 tokens)",
+                     lambda: rag.embed(query))
+        profile_call(torch, "rag search (4 queries)",
+                     lambda: index.search(emb, rag.search_params))
+        profile_call(torch, "rag decode step (4 tokens, pos 255)",
+                     lambda: decode_step(params, cfg, query[:, -1:], caches,
+                                         Sd - 1))
+    del params, rag
+    torch.cuda.empty_cache()
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:90",
+                path="rag", max_abs_err=max(errs), ms=ms8, plain_ms=plain8,
+                bound_ms=bound8, bound_by=by8, library_ms=lib8)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=FULL_N)
@@ -197,8 +419,9 @@ def main() -> int:
     ap.add_argument("--parity-n", type=int, default=20_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one batch of each search variant with "
-                         "torch.profiler: device busy share, top kernels")
+                    help="also trace one batch of each search variant, and "
+                         "the RAG path's embed, search and one decode step, "
+                         "with torch.profiler: device busy share, top kernels")
     args = ap.parse_args()
 
     import torch
@@ -687,7 +910,8 @@ def main() -> int:
                   f"{lo}..{hi if hi is not None else ''}")
     if args.profile:
         for name, (fn, params) in variants.items():
-            profile_batch(torch, name, fn, ds.queries[: args.batch], params)
+            profile_call(torch, name,
+                         lambda: fn(ds.queries[: args.batch], params))
     check(np.array_equal(results["search"][0], results["search_per_hop"][0]),
           "persistent and per-hop stage ① give different ids")
     check(results["search"][1] >= results["search_baseline"][1] - 0.02,
@@ -762,6 +986,9 @@ def main() -> int:
             check(overlap >= 0.95,
                   f"{dt}: card and CPU paths disagree: overlap {overlap}")
     index.set_pilot_dtype("float32")
+
+    # ---- 6. rag: tinyllama-1.1b at full width over the deep-1M index ----
+    kernels.append(rag_phase(torch, np, args, index, counts))
 
     # each kernel's launches on the first path that must launch it (K7 on
     # the build, K1 and K3 on ``search``, K2 on the per-hop path; K6 on

@@ -1,0 +1,10 @@
+"""smollm-360m — llama-arch small. [hf:HuggingFaceTB/SmolLM-360M; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-360m", family="dense",
+    n_layers=32, d_model=960, n_heads=15, n_kv_heads=5, head_dim=64,
+    d_ff=2560, vocab_size=49152,
+    tie_embeddings=True,
+    source="hf:HuggingFaceTB/SmolLM-135M; hf",
+)

@@ -7,6 +7,7 @@ from repro_torch.kernels.build_kernel import fused_candidate_merge
 from repro_torch.kernels.fes_kernel import (fes_distances,
                                             fes_int4_distances,
                                             fes_pq_distances)
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ops import fes_select
 from repro_torch.kernels.topk_kernel import fused_expand_merge
 from repro_torch.kernels.traversal_kernel import (fused_pilot_search,
@@ -14,7 +15,7 @@ from repro_torch.kernels.traversal_kernel import (fused_pilot_search,
 
 KERNELS = (fused_pilot_search, fused_traversal_hop, fes_distances,
            fes_int4_distances, fes_pq_distances, fused_expand_merge,
-           fused_candidate_merge)
+           fused_candidate_merge, flash_attention)
 
 
 def launch_counts() -> dict:
@@ -27,6 +28,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "fes_distances", "fes_int4_distances",
-           "fes_pq_distances", "fes_select", "fused_candidate_merge",
-           "fused_expand_merge", "fused_pilot_search", "fused_traversal_hop",
+           "fes_pq_distances", "fes_select", "flash_attention",
+           "fused_candidate_merge", "fused_expand_merge", "fused_pilot_search", "fused_traversal_hop",
            "launch_counts", "reset_launch_counts"]

@@ -27,7 +27,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("traversal", "fes", "topk", "build")
+SOURCES = ("traversal", "fes", "topk", "build", "flash_attention")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC"]

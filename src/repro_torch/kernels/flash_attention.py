@@ -1,0 +1,80 @@
+"""Flash-attention forward (K8), hand-written CUDA for Hopper
+(``csrc/flash_attention.cu``).
+
+Replaces ``repro.kernels.flash_attention.flash_attention_tpu``
+(``_flash_fwd_kernel``, pallas_call at ``flash_attention.py:90``): causal
+or non-causal GQA attention with an fp32 online softmax, output in q's
+dtype.  The TPU kernel's repeat of K/V over the query group, its
+``Sq % 128 == 0`` assert and its whole-sequence K/V blocks are dropped: the
+kernel reads the key head ``h // (H // Hkv)`` directly and masks the tail
+rows and keys itself.
+
+The wrapper launches the kernel for CUDA tensors and runs
+``kernels/ref.flash_attention_ref`` for CPU tensors; it counts its launches
+in ``flash_attention.launches``.
+
+Bound and design (details in the source): at the RAG path's shape the
+operations bound it (2·B·H·S·(S+1)·D on the bf16 tensor cores); this first
+kernel has one 64-thread block per (b·h, 64 query rows), one thread per
+row with its fp32 m, l and acc[D] in registers, and K/V tiles of 64 keys
+in shared memory, on the fp32 cores.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_attention_ref
+
+HEAD_DIMS = (64, 128)                        # the kernel's template D
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib():
+    lib = _build.load("flash_attention")
+    if lib.flash_attention_fwd.argtypes is None:
+        lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_fwd.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B, Sq, H, D); k, v (B, Sk, Hkv, D), H % Hkv == 0; one dtype,
+    float32 or bfloat16.  Returns (B, Sq, H, D) in q's dtype.  Causal masks
+    ``q_pos >= k_pos`` with q and k both starting at position 0.  On the
+    card D must be 64 or 128."""
+    if _build.on_cpu("flash attention", q, k, v):
+        return flash_attention_ref(q, k, v, causal=causal)
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if (k.shape != (B, Sk, Hkv, D) or v.shape != k.shape or Hkv == 0
+            or H % Hkv):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash attention takes one dtype of float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the kernel is built for {HEAD_DIMS}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    lib = _lib()
+    rc = lib.flash_attention_fwd(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+        _DTYPES[q.dtype], B, Sq, Sk, H, Hkv, D, int(causal),
+        1.0 / math.sqrt(D), _build.stream_of(q))
+    _build.check(lib, rc, "flash_attention launch")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

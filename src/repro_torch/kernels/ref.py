@@ -6,10 +6,14 @@ the card.  The traversal and expand-merge versions repeat the CUDA kernels'
 summation order (``lane_dot``), so on the same inputs they give the
 kernels' bits; against the JAX reference, distances agree within float
 noise and ids, flags, visited bits and counters exactly.  The candidate
-merge does no arithmetic and is bit-equal to both.
+merge does no arithmetic and is bit-equal to both.  The attention version
+is a full fp32 softmax, not the kernel's tiled one: the two agree within
+float rounding.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -246,3 +250,30 @@ def expand_merge_ref(q, nvecs, nids, fresh, beam_id, beam_d, beam_ck, n: int):
     all_ck = torch.cat([beam_ck.to(torch.bool), ~fresh], dim=1)
     take = lexsort2(all_d, all_id)[:, :ef]
     return all_id.gather(1, take), all_d.gather(1, take), all_ck.gather(1, take)
+
+
+NEG_INF = -1e30  # masked-score value of the reference's attention
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Attention forward with the contract of ``repro.kernels.
+    flash_attention.flash_attention_tpu``, computed without tiles: per
+    (b, h) a full fp32 masked softmax of ``q·kᵀ·D^-½`` (causal: ``q_pos >=
+    k_pos``, both starting at 0; masked scores ``NEG_INF``), times v, over
+    ``max(l, 1e-30)``, in q's dtype.  Query head h reads key head ``h //
+    (H // Hkv)``.  q (B, Sq, H, D); k, v (B, Sk, Hkv, D).  The plain version
+    of ``kernels.flash_attention.flash_attention``."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, Hkv, H // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (1.0 / math.sqrt(D))
+    if causal:
+        keep = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = s.masked_fill(~keep, NEG_INF)
+    if Sk:
+        s = s - s.amax(-1, keepdim=True)
+    p = torch.exp(s)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    l = p.sum(-1).permute(0, 3, 1, 2)[..., None]            # (B, Sq, Hkv, G, 1)
+    return (o / l.clamp_min(1e-30)).reshape(B, Sq, H, D).to(q.dtype)

@@ -16,6 +16,7 @@ from repro_torch.core import graph_build as TGB
 from repro_torch.core import quant as TQ
 from repro_torch.kernels import (build_kernel, fes_kernel, ops, ref as TR,
                                  topk_kernel, traversal_kernel)
+from repro_torch.kernels import flash_attention as k8
 
 
 @pytest.fixture
@@ -277,3 +278,93 @@ def test_nn_descent_build_on_card(cuda):
     rec = lambda ids: np.mean([len(set(a) & set(b)) / 10
                                for a, b in zip(ids, exact)])
     assert abs(rec(ids_g) - rec(ids_c)) <= 0.01
+
+
+def _attn_inputs(B, Sq, Sk, H, Hkv, D, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((B, S, h, D), generator=g).to(dtype)
+            for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D", [
+    (2, 200, 200, 8, 2, 64),      # GQA 4, ragged tail of a 64-row tile
+    (1, 1024, 1024, 32, 4, 64),   # the RAG path's head layout
+    (2, 77, 77, 4, 1, 128),       # MQA, D 128
+    (1, 130, 300, 4, 4, 128),     # Sq != Sk
+    (1, 300, 45, 6, 3, 64),
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, Hkv, D,
+                                              causal, dtype):
+    """K8 against its plain version: 1e-4 in fp32 (summation order only),
+    3e-2 in bf16 (the reference's bar; both keep P in fp32, so this is
+    the output's rounding)."""
+    q, k, v = (t.to(cuda) for t in _attn_inputs(B, Sq, Sk, H, Hkv, D,
+                                                 dtype, seed=Sq + Sk + D))
+    before = k8.launches
+    got = k8(q, k, v, causal=causal)
+    assert k8.launches == before + 1
+    want = TR.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
+    q, k, v = (t.to(cuda) for t in _attn_inputs(1, 8, 8, 4, 2, 96,
+                                                 torch.float32, seed=0))
+    with pytest.raises(ValueError, match="head dim"):
+        k8(q, k, v)
+    q, k, v = (t.to(cuda) for t in _attn_inputs(1, 8, 8, 4, 2, 64,
+                                                 torch.float16, seed=0))
+    with pytest.raises(TypeError, match="bfloat16"):
+        k8(q, k, v)
+    q, k, v = (t.to(cuda) for t in _attn_inputs(1, 8, 8, 4, 3, 64,
+                                                 torch.float32, seed=0))
+    with pytest.raises(ValueError, match="shapes"):
+        k8(q, k, v)
+
+
+@pytest.mark.cuda
+def test_model_and_rag_on_the_card(cuda):
+    """A small dense model (head dim 64, GQA 4/2) through forward, decode
+    and the RAG pipeline on the card, against the same weights on the
+    CPU: every layer's attention launches K8 once per forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import IndexConfig, PilotANNIndex
+    from repro_torch.models import decode_step, forward, init_caches, init_params
+    from repro_torch.serving import RagPipeline
+
+    cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b"),
+                                      d_model=256), n_kv_heads=2)
+    assert cfg.head_dim == 64
+    p_gpu = init_params(cfg, seed=0, device=cuda)
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    p_cpu.load_state_dict({k: v.cpu() for k, v in p_gpu.state_dict().items()})
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 70))
+    before = k8.launches
+    hg, _ = forward(p_gpu, cfg, tok)
+    assert k8.launches == before + cfg.n_layers
+    hc, _ = forward(p_cpu, cfg, tok)
+    rel = (hg.float().cpu() - hc.float()).abs().mean() / hc.float().abs().mean()
+    assert float(rel) <= 2e-2
+    caches = init_caches(p_gpu, cfg, 3, 8)
+    lg, caches = decode_step(p_gpu, cfg, tok[:, :1], caches, 0)
+    assert lg.shape == (3, 1, cfg.vocab_size) and caches["k"].is_cuda
+
+    x = np.random.default_rng(1).normal(size=(3000, 32)).astype(np.float32)
+    index = PilotANNIndex(IndexConfig(R=16, n_entry=512), x, device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        RagPipeline(index=index, params=p_cpu, cfg=cfg)
+    rag = RagPipeline(index=index, params=p_gpu, cfg=cfg, max_new_tokens=4)
+    before = k8.launches
+    out, ids = rag.generate(tok[:, :16], lambda i: np.full(16, i % 7))
+    assert k8.launches == before + cfg.n_layers       # one embed
+    assert out.shape == (3, 4) and ((out >= 0) & (out < cfg.vocab_size)).all()
+    assert ids.shape == (3, 4) and ((ids >= 0) & (ids < 3000)).all()
