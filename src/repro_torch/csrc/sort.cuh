@@ -1,6 +1,5 @@
 // Block-wide bitonic sort of (distance, id, position, flag) items in shared
-// memory, shared by the candidate merge (build.cu, K7) and the expand-merge
-// (topk.cu, K6).
+// memory, used by the expand-merge (topk.cu, K6).
 //
 // Replaces _bitonic_sort_pairs of src/repro/kernels/topk_kernel.py, which
 // sorted float keys with an id payload across the TPU's lanes.  Here the
@@ -29,16 +28,6 @@ struct ByDistId {
                                              const SortItem& b) const {
     if (a.d != b.d) return a.d < b.d;
     if (a.id != b.id) return a.id < b.id;
-    return a.pos < b.pos;
-  }
-};
-
-// (id, distance, position) ascending
-struct ByIdDist {
-  __device__ __forceinline__ bool operator()(const SortItem& a,
-                                             const SortItem& b) const {
-    if (a.id != b.id) return a.id < b.id;
-    if (a.d != b.d) return a.d < b.d;
     return a.pos < b.pos;
   }
 };

@@ -19,12 +19,17 @@ KERNELS = (fused_pilot_search, fused_traversal_hop, fes_distances,
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    """Launches of each wrapper's kernel; ``flash_attention`` counts both
+    of K8's kernels and ``flash_attention_bf16`` the tensor-core one."""
+    counts = {k.__name__: k.launches for k in KERNELS}
+    counts["flash_attention_bf16"] = flash_attention.bf16_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    flash_attention.bf16_launches = 0
 
 
 __all__ = ["KERNELS", "fes_distances", "fes_int4_distances",

@@ -1,18 +1,20 @@
 """NN-descent candidate merge, hand-written CUDA for Hopper
-(``csrc/build.cu``, sort in ``csrc/sort.cuh``).
+(``csrc/build.cu``).
 
 Replaces ``repro.kernels.build_kernel.fused_candidate_merge``
 (``_candidate_merge_kernel``, pallas_call at ``build_kernel.py:96``).  The
 reference's ``MAX_ID_EXACT`` cap (ids as fp32 sort keys, n < 2**24) is a
-TPU artefact and is dropped: the CUDA comparator reads the int32 id.
+TPU artefact and is dropped: the CUDA kernel keys on the int32 id itself.
 
 The wrapper runs the kernel for CUDA tensors and ``kernels/ref.
 candidate_merge_ref`` for CPU tensors; it counts its launches in
 ``fused_candidate_merge.launches``.
 
-Bound and design (details in the source): bytes — 8·(2K + P) per row; one
-block per row sorts the K + P pairs twice in shared memory (by id to drop
-repeats, then by distance) and writes the first K.  Bit-equal to the plain
+Bound and design (details in the source): bytes — 8·(2K + P) per row.  One
+warp per row orders and dedupes its K incumbents; when they hold K distinct
+valid ids the K-th (distance, id) key is a threshold, and only the
+proposals below it are merged (in NN-descent's late rounds, few).  With
+sentinel incumbents every proposal is merged.  Bit-equal to the plain
 version: the merge does no arithmetic.
 """
 
@@ -58,7 +60,7 @@ def fused_candidate_merge(cand_ids: torch.Tensor, cand_d: torch.Tensor,
     lib = _lib()
     W = _build.next_pow2(K + P)
     if W > lib.candidate_merge_max_width():
-        raise ValueError(f"K + P = {K + P} exceeds the merge's block width "
+        raise ValueError(f"K + P = {K + P} exceeds the merge's list width "
                          f"{lib.candidate_merge_max_width()}")
     ci = cand_ids.to(torch.int32).contiguous()
     cd = cand_d.to(torch.float32).contiguous()

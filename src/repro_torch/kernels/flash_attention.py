@@ -9,15 +9,19 @@ dtype.  The TPU kernel's repeat of K/V over the query group, its
 kernel reads the key head ``h // (H // Hkv)`` directly and masks the tail
 rows and keys itself.
 
-The wrapper launches the kernel for CUDA tensors and runs
-``kernels/ref.flash_attention_ref`` for CPU tensors; it counts its launches
-in ``flash_attention.launches``.
+The wrapper launches a kernel for CUDA tensors, chosen by dtype, and runs
+``kernels/ref.flash_attention_ref`` for CPU tensors.  It counts every
+launch in ``flash_attention.launches`` and the bf16 kernel's in
+``flash_attention.bf16_launches``.
 
 Bound and design (details in the source): at the RAG path's shape the
-operations bound it (2·B·H·S·(S+1)·D on the bf16 tensor cores); this first
-kernel has one 64-thread block per (b·h, 64 query rows), one thread per
-row with its fp32 m, l and acc[D] in registers, and K/V tiles of 64 keys
-in shared memory, on the fp32 cores.
+operations bound it (2·B·H·S·(S+1)·D on the bf16 tensor cores).  bf16 runs
+on the tensor cores: per (b·h, 128 query rows) two warpgroups keep q in
+shared memory, K/V tiles of 128 keys stream through a two-stage TMA ring,
+and S = q·kᵀ and P·V are wgmma products with an fp32 online softmax
+between them (P rounded to bf16 as the A operand of P·V, as the jnp model
+reference rounds it).  fp32 runs on the fp32 cores, one thread per query
+row, K/V tiles of 64 keys in shared memory (TF32 would not keep 1e-4).
 """
 
 from __future__ import annotations
@@ -44,6 +48,12 @@ def _lib():
     return lib
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied if its base is not 16-byte aligned (the bf16 kernel's
+    tensor maps need aligned bases; a fresh allocation is)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q (B, Sq, H, D); k, v (B, Sk, Hkv, D), H % Hkv == 0; one dtype,
@@ -63,7 +73,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D}: the kernel is built for {HEAD_DIMS}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
@@ -74,7 +84,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         1.0 / math.sqrt(D), _build.stream_of(q))
     _build.check(lib, rc, "flash_attention launch")
     flash_attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention.bf16_launches += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.bf16_launches = 0

@@ -192,6 +192,16 @@ def _merge_inputs(seed, B, K, P, n, ties):
     return [torch.from_numpy(a) for a in (cid, cd, pid, pd_)]
 
 
+def _assert_merge_bit_equal(t, n):
+    before = build_kernel.fused_candidate_merge.launches
+    gi, gd = build_kernel.fused_candidate_merge(*t, n)
+    assert build_kernel.fused_candidate_merge.launches == before + 1
+    wi, wd = TR.candidate_merge_ref(*t, n)
+    assert torch.equal(gi, wi)
+    assert torch.equal(gd.view(torch.int32), wd.view(torch.int32))
+    return wi, wd
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,K,P,ties", [(12, 16, 24, False),
                                         (300, 64, 272, False),
@@ -200,16 +210,84 @@ def _merge_inputs(seed, B, K, P, n, ties):
 def test_candidate_merge_kernel_bit_equal(cuda, B, K, P, ties):
     n = 1000
     t = [a.to(cuda) for a in _merge_inputs(B + K, B, K, P, n, ties)]
-    before = build_kernel.fused_candidate_merge.launches
-    gi, gd = build_kernel.fused_candidate_merge(*t, n)
-    assert build_kernel.fused_candidate_merge.launches == before + 1
-    wi, wd = TR.candidate_merge_ref(*t, n)
-    assert torch.equal(gi, wi)
-    assert torch.equal(gd.view(torch.int32), wd.view(torch.int32))
+    wi, wd = _assert_merge_bit_equal(t, n)
     # the card's plain version agrees with the CPU's
     ci, cd = TR.candidate_merge_ref(*(a.cpu() for a in t), n)
     assert torch.equal(wi.cpu(), ci)
     assert torch.equal(wd.cpu().view(torch.int32), cd.view(torch.int32))
+
+
+def _filtered_inputs(seed, B, K, P, n):
+    """Sorted, distinct, valid incumbents (so the kernel's threshold
+    applies) with proposals that tie the threshold, repeat incumbents at
+    equal, smaller and larger distances, carry -0.0 against +0.0 and
+    negative distances, and repeat each other."""
+    rng = np.random.default_rng(seed)
+    cid = np.stack([rng.choice(n, K, replace=False) for _ in range(B)])
+    cd = rng.choice(np.float32([-1.0, -0.0, 0.0, 0.5, 1.0, 2.0, 4.0]),
+                    (B, K))
+    order = np.lexsort((cid, cd + 0.0), axis=1)
+    cid = np.take_along_axis(cid, order, 1).astype(np.int32)
+    cd = np.take_along_axis(cd, order, 1).astype(np.float32)
+    pid = rng.integers(0, n + 3, (B, P)).astype(np.int32)
+    pd_ = rng.choice(np.float32([-2.0, -0.0, 0.0, 0.5, 1.0, 4.0, 8.0]),
+                     (B, P))
+    pid[:, :4], pd_[:, :4] = cid[:, -4:], cd[:, -4:]         # the threshold
+    pid[:, 4:8], pd_[:, 4:8] = cid[:, :4], -cd[:, :4]        # zeros flipped
+    pid[:, 8:12] = pid[:, 12:16]                             # repeats
+    return [torch.from_numpy(a) for a in (cid, cd, pid, pd_.astype(np.float32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["filtered", "sentinel_incumbents",
+                                  "no_proposals", "one_proposal"])
+def test_candidate_merge_kernel_adversarial_rows(cuda, case):
+    """Bit-equal to the plain merge on both of the kernel's branches: the
+    threshold filter (sorted distinct incumbents, ties and repeats at the
+    threshold, -0.0 and negative distances) and the full merge (all
+    sentinel incumbents, no or one proposal, unsorted repeats)."""
+    n, B, K = 500, 200, 64
+    if case == "filtered":
+        t = _filtered_inputs(1, B, K, 784, n)
+    elif case == "sentinel_incumbents":
+        _, _, pid, pd_ = _merge_inputs(2, B, K, K, n, ties=True)
+        t = [torch.full((B, K), n, dtype=torch.int32),
+             torch.full((B, K), 3.0e38), pid, pd_]
+    else:
+        P = 0 if case == "no_proposals" else 1
+        cid, cd, pid, pd_ = _merge_inputs(3, B, K, 4, n, ties=True)
+        t = [cid, cd, pid[:, :P].contiguous(), pd_[:, :P].contiguous()]
+    _assert_merge_bit_equal([a.to(cuda) for a in t], n)
+
+
+@pytest.mark.cuda
+def test_candidate_merge_kernel_on_the_build_shapes(cuda):
+    """The merges of an NN-descent build at n 3,000 (K 64, S 16): the
+    seeding merge (P 64, sentinel incumbents), the first local-join round
+    (P 784) and a late round, and the reverse-edge pass (K = P = 64, all
+    sentinel incumbents), each bit-equal to the plain merge."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(3000, 32)).astype(np.float32))
+    x_pad = TDB._pad_rows(x.to(cuda))
+    n, K, S = 3000, 64, 16
+    xsq = (x_pad * x_pad).sum(-1)
+    ids = torch.full((n, K), n, dtype=torch.int32, device=cuda)
+    dd = torch.full((n, K), 3.0e38, device=cuda)
+    props0 = torch.from_numpy(rng.integers(0, n, (n, K)).astype(np.int32))
+    props0 = props0.to(cuda)
+    _assert_merge_bit_equal([ids, dd, props0, TDB._score(x_pad, xsq, props0,
+                                                         n, None)], n)
+    for rounds in (0, TDB.ROUNDS - 1):
+        ids, dd = TDB._nn_descent(x_pad, K, rounds=rounds, S=S, seed=0,
+                                  block=None)
+        props = TDB._proposals(ids, n, S, local=True)
+        assert props.shape[1] == 3 * S * S + S
+        _assert_merge_bit_equal([ids, dd, props,
+                                 TDB._score(x_pad, xsq, props, n, None)], n)
+    cand = torch.cat([ids[:, :32], TDB._reverse_lists(ids[:, :32], n, 32)], 1)
+    _assert_merge_bit_equal([torch.full_like(cand, n),
+                             torch.full(cand.shape, 3.0e38, device=cuda), cand,
+                             TDB._score(x_pad, xsq, cand, n, None)], n)
 
 
 @pytest.mark.cuda
@@ -295,22 +373,40 @@ def _attn_inputs(B, Sq, Sk, H, Hkv, D, dtype, seed):
     (2, 77, 77, 4, 1, 128),       # MQA, D 128
     (1, 130, 300, 4, 4, 128),     # Sq != Sk
     (1, 300, 45, 6, 3, 64),
+    (1, 1024, 1024, 8, 2, 128),   # D 128 at S 1024
+    (2, 333, 517, 8, 4, 64),      # neither a multiple of a 128-row tile
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, Hkv, D,
                                               causal, dtype):
-    """K8 against its plain version: 1e-4 in fp32 (summation order only),
-    3e-2 in bf16 (the reference's bar; both keep P in fp32, so this is
-    the output's rounding)."""
+    """K8 against its plain version: 1e-4 in fp32 (the fp32-core kernel;
+    summation order only), 3e-2 in bf16 (the reference's bar: the
+    tensor-core kernel rounds P to bf16 before P·V, as the jnp model
+    reference does, where the plain version keeps it fp32).  bf16 goes
+    through the tensor-core kernel, fp32 does not."""
     q, k, v = (t.to(cuda) for t in _attn_inputs(B, Sq, Sk, H, Hkv, D,
                                                  dtype, seed=Sq + Sk + D))
-    before = k8.launches
+    before, before_bf16 = k8.launches, k8.bf16_launches
     got = k8(q, k, v, causal=causal)
     assert k8.launches == before + 1
+    assert k8.bf16_launches == before_bf16 + (dtype == torch.bfloat16)
     want = TR.flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_takes_unaligned_views(cuda):
+    """A contiguous bf16 view whose base is not 16-byte aligned (the
+    tensor maps need aligned bases) gives the aligned copy's result."""
+    q, k, v = (t.to(cuda) for t in _attn_inputs(1, 100, 100, 4, 2, 64,
+                                                 torch.bfloat16, seed=1))
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    qv = buf[1:].view(q.shape)
+    qv.copy_(q)
+    assert qv.data_ptr() % 16 != 0
+    torch.testing.assert_close(k8(qv, k, v), k8(q, k, v), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -348,9 +444,10 @@ def test_model_and_rag_on_the_card(cuda):
     p_cpu = init_params(cfg, seed=0, device="cpu")
     p_cpu.load_state_dict({k: v.cpu() for k, v in p_gpu.state_dict().items()})
     tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 70))
-    before = k8.launches
+    before, before_bf16 = k8.launches, k8.bf16_launches
     hg, _ = forward(p_gpu, cfg, tok)
     assert k8.launches == before + cfg.n_layers
+    assert k8.bf16_launches == before_bf16 + cfg.n_layers
     hc, _ = forward(p_cpu, cfg, tok)
     rel = (hg.float().cpu() - hc.float()).abs().mean() / hc.float().abs().mean()
     assert float(rel) <= 2e-2

@@ -109,3 +109,48 @@ def test_causal_rows_see_only_the_past():
     b = t_flash(q, k2, v2, causal=True)
     torch.testing.assert_close(a[:, :50], b[:, :50], rtol=0, atol=0)
     assert not torch.equal(a[:, 50:], b[:, 50:])
+
+
+def _tensor_core_rounding(q, k, v, *, causal, tile=128):
+    """The bf16 tensor-core K8's arithmetic in plain torch: fp32 scores of
+    the bf16 inputs, 128-key tiles with an fp32 running max and sum (the sum
+    over the fp32 p), P rounded to bf16 only as the operand of P·V (exact
+    bf16 products summed in fp32), output acc / max(l, 1e-30) in bf16."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    kh = torch.arange(H) // (H // Hkv)
+    qf = q.float().permute(0, 2, 1, 3)                        # (B, H, Sq, D)
+    kf = k.float().permute(0, 2, 1, 3)[:, kh]
+    vf = v.float().permute(0, 2, 1, 3)[:, kh]
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros((B, H, Sq, 1))
+    acc = torch.zeros((B, H, Sq, D))
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, tile):
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2) / np.sqrt(D)
+        cols = torch.arange(k0, min(k0 + tile, Sk))[None, :]
+        if causal:
+            s = s.masked_fill(cols > rows, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    o = acc / l.clamp_min(1e-30)
+    return o.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,D", [(200, 200, 64), (130, 300, 128)])
+def test_tensor_core_rounding_within_the_bars(Sq, Sk, D, causal):
+    """Rounding P to bf16 before P·V (the tensor-core kernel's one change
+    of contract) stays within 3e-2 of the plain version, which keeps P in
+    fp32, and of the jnp reference in bf16, which rounds P too."""
+    arrs = _inputs(2, Sq, Sk, 4, 2, D, seed=Sq + Sk + D)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    got = _tensor_core_rounding(q, k, v, causal=causal).float().numpy()
+    plain = flash_attention_ref(q, k, v, causal=causal).float().numpy()
+    np.testing.assert_allclose(got, plain, rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(got, _reference(arrs, "bfloat16", causal),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
