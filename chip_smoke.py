@@ -22,8 +22,12 @@ Phases, one line each (any failed check exits non-zero):
                card, at the shapes the main path gives it (K7 bit-equal at
                the build's three shapes on the index's vectors: the seeding
                merge, the first local-join round and a late round; K6 on a
-               stage-① state), with times (CUDA events, median of 20 after
-               warm-up) and bounds; then, for each quantized pilot dtype
+               stage-① state, with fp32 and with bf16 neighbour vectors;
+               K8 at the head dims of its fp32-core kernel alone, D 16, 32
+               and 96), with times (CUDA events around the wrapper, median
+               of 20 after warm-up; K1, K2 and K6 also their device time from a
+               torch.profiler trace, and K1 the slowest query's rounds and
+               the device time per round) and bounds; then, for each quantized pilot dtype
                (bf16, int8, int4, pq, encoded by ``set_pilot_dtype``), the
                FES kernel of that entry encoding (K3 with a scale, K4, K5;
                within 1e-4, same top-L ids) and K2/K1 on the index's own
@@ -55,7 +59,9 @@ Phases, one line each (any failed check exits non-zero):
                and with the plain attention (hidden-state error, top-4
                retrieval ids equal on >= 0.95 of the rows); 4 x 256 tokens
                teacher-forced through decode_step against the forward's
-               logits (top-1 >= 0.95); ``generate`` of 4 requests x 256
+               logits (top-1 >= 0.95; at each position where the two top-1s
+               differ, the top-2 gaps in bf16 ulps, and the agreement with
+               the plain attention in the prefill); ``generate`` of 4 requests x 256
                tokens, 8 new tokens (retrieve and search ms, decode
                tokens/s, K8 launched 22 times, all on the tensor cores:
                one embed).
@@ -84,6 +90,7 @@ T_START = time.perf_counter()
 
 
 QUANT = ("bfloat16", "int8", "int4", "pq")   # the quantized pilot dtypes
+TRAVERSAL = "pilot_traversal"                # K1/K2's kernel, in a trace
 # the FES kernel each entry encoding goes through, and the TPU kernel it
 # replaces
 FES_KERNEL = {"float32": "fes_distances", "bfloat16": "fes_distances",
@@ -129,6 +136,33 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, name: str, reps: int = 20):
+    """Mean device time (ms) per call of ``fn()`` of the kernels whose name
+    holds ``name``, from a torch.profiler trace of ``reps`` calls after one
+    warm call; None when the trace holds no such device event."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and name in e.name]
+    return sum(us) / 1e3 / reps if us else None
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def per_round(ms, rounds: int) -> str:
+    return ("not measured" if ms is None or rounds == 0
+            else f"{1e3 * ms / rounds:.3f} us a round")
 
 
 def same_bits(torch, got, want, what: str, names) -> None:
@@ -209,6 +243,43 @@ def profile_call(torch, name, fn) -> None:
           f"{busy / 1e3:.3f} ms on the card (busy share "
           f"{busy / wall_us:.4f}), top: " + "; ".join(
               f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top), flush=True)
+
+
+def k8_head_dim_cases(torch, dev, seed: int) -> list:
+    """K8 at the head dims only its fp32-core kernel is built for (16, 32,
+    96; the ``reduced()`` configs have D 16): fp32 within 1e-4 and bf16
+    within 3e-2 of the plain version, causal and not, GQA 4/1, Sq != Sk.
+    None of them launches the tensor-core kernel."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for D in (16, 32, 96):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+            for causal in (True, False):
+                shape = (2, 300, 520, 16, 4, D)
+                B_, Sq, Sk, H, Hkv, _ = shape
+                q, k, v = [torch.randn((B_, S_, h, D), generator=g,
+                                       device=dev).to(dtype)
+                           for S_, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv))]
+                before = flash_attention.bf16_launches
+                got = flash_attention(q, k, v, causal=causal)
+                want = flash_attention_ref(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                check(flash_attention.bf16_launches == before,
+                      f"K8 D {D}: launched the tensor-core kernel")
+                err = float((got.float() - want.float()).abs().max())
+                check(got.dtype == dtype and torch.allclose(
+                    got.float(), want.float(), rtol=tol, atol=tol),
+                      f"K8 D {D} {dtype} causal={causal}: max abs err {err}")
+                rows.append(dict(shape=list(shape), dtype=str(dtype)[6:],
+                                 causal=causal, max_abs_err=err, tol=tol))
+    print("[kernels] K8 flash_attention on the fp32 cores at D 16, 32, 96 "
+          "(B 2, Sq 300, Sk 520, H 16/4), fp32 and bf16, causal and not, "
+          "ok: max abs err " + ", ".join(
+              f"D {r['shape'][-1]} {r['dtype']}{' causal' * r['causal']} "
+              f"{r['max_abs_err']:.3g}" for r in rows), flush=True)
+    return rows
 
 
 def rag_phase(torch, np, args, index, counts) -> list:
@@ -379,7 +450,28 @@ def rag_phase(torch, np, args, index, counts) -> list:
           f": top-1 agreement {top1:.4f}, mean relative logit error "
           f"{drel:.3g} ({stamp()})", flush=True)
     check(top1 >= 0.95, f"rag: prefill/decode top-1 agreement {top1}")
-    del h, full, step, caches
+    # where the two top-1s differ: the prefill's top-2 gap in bf16 ulps of
+    # its top logit (the logits are bf16 products), and the same agreement
+    # with the plain attention in the prefill in place of K8
+    flips = full.argmax(-1) != step.argmax(-1)
+    top2 = full.topk(2, dim=-1).values[flips]
+    gap = top2[:, 0] - top2[:, 1]
+    ulp = torch.exp2(torch.floor(torch.log2(top2[:, 0].abs())) - 7)
+    dtop2 = step.topk(2, dim=-1).values[flips]
+    with plain():
+        hp_, _ = forward(params, cfg, tok)
+    full_p = unembed(params, cfg, hp_)
+    top1_plain = float((full_p.argmax(-1) == step.argmax(-1)).float().mean())
+    k8_plain = float((full_p.argmax(-1) == full.argmax(-1)).float().mean())
+    print(f"[rag] prefill vs decode flips: {int(flips.sum())} of {Bd * Sd} "
+          f"positions; the prefill's top-2 gap at each, in bf16 ulps of its "
+          f"top logit: {sorted(round(float(x), 2) for x in gap / ulp)}; the "
+          f"decode's: "
+          f"{sorted(round(float(x), 2) for x in (dtop2[:, 0] - dtop2[:, 1]) / ulp)} "
+          f"| with the plain attention in the prefill: top-1 agreement with "
+          f"decode {top1_plain:.4f}, with the K8 prefill {k8_plain:.4f} "
+          f"({stamp()})", flush=True)
+    del h, full, step, caches, full_p, hp_
 
     # generate: retrieve (embed + search), stepped prefill, 8 new tokens
     query = rng.integers(0, cfg.vocab_size, (Bd, Sd)).astype(np.int32)
@@ -692,6 +784,8 @@ def main() -> int:
               f"K2 W={W}: distances differ, max abs err {err2}")
         ms2 = time_ms(torch, lambda: fused_traversal_hop(
             *hop_args, width=W, visited_mode="bloom"))
+        dev2 = device_ms(torch, lambda: fused_traversal_hop(
+            *hop_args, width=W, visited_mode="bloom"), TRAVERSAL)
         plain2 = time_ms(torch, lambda: traversal_hop_ref(
             *hop_args, width=W, visited_mode="bloom"))
         unchecked = ~st.checked & (st.cand_id < nk)
@@ -701,18 +795,19 @@ def main() -> int:
         bound2 = 1e3 * bytes2 / HBM_BYTES_PER_S
         print(f"[kernels] K2 fused_traversal_hop W={W} (B={B}, ef={ef}, R={R}, "
               f"dp={dp}, {id_bytes * 8}-bit ids) ok: {int(diff.sum())} near-tie "
-              f"id swaps, max_abs_err {err2:.3g} | {ms2:.4f} ms vs plain "
+              f"id swaps, max_abs_err {err2:.3g} | {ms2:.4f} ms (CUDA events "
+              f"around the wrapper; device time {fmt_ms(dev2)}) vs plain "
               f"{plain2:.4f} ms | bound {bound2:.4f} ms (bytes)", flush=True)
-        hop_rows.append((W, err2, ms2, plain2, bound2))
+        hop_rows.append((W, err2, ms2, plain2, bound2, dev2))
         if W == 1:
             k6_state, k6_fresh = st, rfr
-    W, err2, ms2, plain2, bound2 = hop_rows[0]      # the main path's W = 1
+    W, err2, ms2, plain2, bound2, dev2 = hop_rows[0]  # the main path's W = 1
     kernels.append(dict(name="fused_traversal_hop", route="cuda",
                         source="src/repro_torch/csrc/traversal.cu",
                         replaces="src/repro/kernels/traversal_kernel.py:486",
                         max_abs_err=max(r[1] for r in hop_rows), ms=ms2,
-                        plain_ms=plain2, bound_ms=bound2, bound_by="bytes",
-                        library_ms=None))
+                        device_ms=dev2, plain_ms=plain2, bound_ms=bound2,
+                        bound_by="bytes", library_ms=None))
 
     # K6: expand-merge of the W = 1 frontier's neighbours into the beam of
     # the same stage-① state (three rounds past the FES start)
@@ -728,18 +823,36 @@ def main() -> int:
     for g, w, what in zip(got6, want6, ("ids", "distances", "checked")):
         check(torch.equal(g, w), f"K6: {what} differ from the plain version")
     ms6 = time_ms(torch, lambda: fused_expand_merge(*k6_args))
+    dev6 = device_ms(torch, lambda: fused_expand_merge(*k6_args),
+                     "expand_merge")
     plain6 = time_ms(torch, lambda: expand_merge_ref(*k6_args))
     bytes6 = B * dp * 4 + B * R * (dp * 4 + 4 + 1) + 2 * beam_bytes
     bound6 = 1e3 * bytes6 / HBM_BYTES_PER_S
     print(f"[kernels] K6 fused_expand_merge (B={B}, ef={ef}, R={R}, d={dp}, "
           f"{int(k6_fresh.sum())} fresh) ok: ids, distances and flags "
-          f"bit-equal | {ms6:.4f} ms vs plain {plain6:.4f} ms | bound "
+          f"bit-equal | {ms6:.4f} ms (dev {fmt_ms(dev6)}) vs plain "
+          f"{plain6:.4f} ms | bound "
           f"{bound6:.5f} ms (bytes)", flush=True)
+    # the same call with bf16 neighbour vectors, widened in the kernel
+    k6_bf16 = (k6_args[0], k6_args[1].to(torch.bfloat16), *k6_args[2:])
+    got6 = fused_expand_merge(*k6_bf16)
+    want6 = expand_merge_ref(*k6_bf16)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got6, want6, ("ids", "distances", "checked")):
+        check(torch.equal(g, w), f"K6 bf16: {what} differ from the plain version")
+    ms6b = time_ms(torch, lambda: fused_expand_merge(*k6_bf16))
+    print(f"[kernels] K6 fused_expand_merge, bf16 neighbour vectors ok: ids, "
+          f"distances and flags bit-equal | {ms6b:.4f} ms", flush=True)
+    k8_dims = k8_head_dim_cases(torch, dev, args.seed)
     kernels.append(dict(name="fused_expand_merge", route="cuda",
                         source="src/repro_torch/csrc/topk.cu",
                         replaces="src/repro/kernels/topk_kernel.py:122",
                         max_abs_err=0.0, ms=ms6, plain_ms=plain6,
-                        bound_ms=bound6, bound_by="bytes", library_ms=None))
+                        bound_ms=bound6, bound_by="bytes", library_ms=None,
+                        device_ms=dev6,
+                        shapes=[dict(vectors="float32", ms=ms6),
+                                dict(vectors="bfloat16", ms=ms6b)]))
+    del got6, want6, k6_bf16
 
     # K1: the whole pilot search from the FES start state
     spec = T.TraversalSpec(ef=ef)
@@ -757,6 +870,9 @@ def main() -> int:
     check(torch.allclose(kres[1][fin], rres[1][fin], rtol=1e-5, atol=1e-4),
           f"K1: distances differ on identical beams, max abs err {err1}")
     ms1 = time_ms(torch, lambda: fused_pilot_search(*k1_args, rounds=512))
+    dev1 = device_ms(torch, lambda: fused_pilot_search(*k1_args, rounds=512),
+                     TRAVERSAL)
+    hops1 = int(rres[5].max())                  # the slowest query's rounds
     plain1 = time_ms(torch, lambda: pilot_search_ref(*k1_args, rounds=512),
                      reps=5, warmup=1)
     bytes1 = (int(rres[4].sum()) * dp * 4 + int(rres[6].sum()) * R * id_bytes
@@ -767,12 +883,15 @@ def main() -> int:
           f"{id_bytes * 8}-bit ids, nk={nk}, mean hops "
           f"{float(rres[5].float().mean()):.1f}) ok: {n_same}/{B} "
           f"queries identical (others: {rest}), max_abs_err {err1:.3g} | "
-          f"{ms1:.4f} ms vs plain {plain1:.4f} ms | bound {bound1:.5f} ms "
-          f"(bytes) ({stamp()})", flush=True)
+          f"{ms1:.4f} ms (CUDA events; device time {fmt_ms(dev1)}, the "
+          f"slowest query {hops1} rounds: {per_round(dev1, hops1)}) vs plain "
+          f"{plain1:.4f} ms | bound {bound1:.5f} ms (bytes) ({stamp()})",
+          flush=True)
     kernels.insert(0, dict(name="fused_pilot_search", route="cuda",
                            source="src/repro_torch/csrc/traversal.cu",
                            replaces="src/repro/kernels/traversal_kernel.py:565",
-                           max_abs_err=err1, ms=ms1, plain_ms=plain1,
+                           max_abs_err=err1, ms=ms1, device_ms=dev1,
+                           rounds_slowest=hops1, plain_ms=plain1,
                            bound_ms=bound1, bound_by="bytes",
                            library_ms=None))
 
@@ -843,6 +962,8 @@ def main() -> int:
         same_bits(torch, kout, rout, f"K2[{dt}]",
                   ("ids", "distances", "checked", "visited", "fresh"))
         ms2q = time_ms(torch, lambda: fused_traversal_hop(*hop_args, **side))
+        dev2q = device_ms(torch, lambda: fused_traversal_hop(*hop_args, **side),
+                          TRAVERSAL)
         plain2q = time_ms(torch, lambda: traversal_hop_ref(*hop_args, **side))
         unchecked = ~st.checked & (st.cand_id < nk)
         n_sel = int(torch.minimum(unchecked.sum(1),
@@ -863,6 +984,9 @@ def main() -> int:
                    "n_hops", "n_exp"))
         ms1q = time_ms(torch, lambda: fused_pilot_search(*k1_args, rounds=512,
                                                          **side))
+        dev1q = device_ms(torch, lambda: fused_pilot_search(
+            *k1_args, rounds=512, **side), TRAVERSAL)
+        hops1q = int(rres[5].max())
         plain1q = time_ms(torch, lambda: pilot_search_ref(
             *k1_args, rounds=512, **side), reps=5, warmup=1)
         bytes1q = (int(rres[4].sum()) * row_b + int(rres[6].sum()) * R * id_bytes
@@ -874,20 +998,24 @@ def main() -> int:
               f"{float(rres[5].float().mean()):.1f}) ok: K2 (W=1) and K1 "
               f"(B={B}, rounds<=512) ids, flags, visited bits, counters and "
               f"distance bits equal to the plain versions | K1 {ms1q:.4f} ms "
-              f"vs plain {plain1q:.4f} ms, bound {bound1q:.5f} ms | K2 "
-              f"{ms2q:.4f} ms vs plain {plain2q:.4f} ms, bound {bound2q:.5f} "
-              f"ms (bytes) ({stamp()})", flush=True)
+              f"(device {fmt_ms(dev1q)}, the slowest query {hops1q} rounds: "
+              f"{per_round(dev1q, hops1q)}) vs plain {plain1q:.4f} ms, bound "
+              f"{bound1q:.5f} ms | K2 {ms2q:.4f} ms (device {fmt_ms(dev2q)}) "
+              f"vs plain {plain2q:.4f} ms, bound {bound2q:.5f} ms (bytes) "
+              f"({stamp()})", flush=True)
         kernels.append(dict(name=f"fused_pilot_search[{dt}]", route="cuda",
                             source="src/repro_torch/csrc/traversal.cu",
                             replaces="src/repro/kernels/traversal_kernel.py:565",
                             path=f"search[{dt}]", max_abs_err=0.0, ms=ms1q,
+                            device_ms=dev1q, rounds_slowest=hops1q,
                             plain_ms=plain1q, bound_ms=bound1q,
                             bound_by="bytes", library_ms=None))
         kernels.append(dict(name=f"fused_traversal_hop[{dt}]", route="cuda",
                             source="src/repro_torch/csrc/traversal.cu",
                             replaces="src/repro/kernels/traversal_kernel.py:486",
                             path=f"search_per_hop[{dt}]", max_abs_err=0.0,
-                            ms=ms2q, plain_ms=plain2q, bound_ms=bound2q,
+                            ms=ms2q, device_ms=dev2q, plain_ms=plain2q,
+                            bound_ms=bound2q,
                             bound_by="bytes", library_ms=None))
         del kout, rout, kres, rres, hop_args, k1_args, st
     index.set_pilot_dtype("float32")
@@ -1041,6 +1169,8 @@ def main() -> int:
 
     # ---- 6. rag: tinyllama-1.1b at full width over the deep-1M index ----
     kernels.extend(rag_phase(torch, np, args, index, counts))
+    next(k for k in kernels if k["name"] == "flash_attention")[
+        "shapes"].extend(k8_dims)
 
     # each kernel's launches on the first path that must launch it (K7 on
     # the build, K1 and K3 on ``search``, K2 on the per-hop path; K6 on

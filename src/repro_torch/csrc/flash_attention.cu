@@ -12,8 +12,9 @@
 // Sq % 128 == 0 assert (tail rows and keys are masked here) and
 // whole-sequence K/V blocks in VMEM (K/V stream through shared memory one
 // tile at a time).  Layout: q (B, Sq, H, D), k/v (B, Sk, Hkv, D),
-// o (B, Sq, H, D), contiguous; D a template parameter in {64, 128}.  Two
-// kernels, chosen by dtype:
+// o (B, Sq, H, D), contiguous; D a template parameter.  Two kernels, chosen
+// by dtype and D: bf16 at D 64 or 128 on the tensor cores; fp32 at D 16,
+// 32, 64, 96 or 128, and bf16 at D 16, 32 or 96, on the fp32 cores:
 //
 // bf16: flash_fwd_bf16_kernel, on the tensor cores.  One block per (b·h,
 // tile of 128 query rows), 288 threads: two consumer warpgroups of 64 rows
@@ -37,7 +38,10 @@
 // and the short ones fill in behind them over the 132 SMs.
 //
 // fp32: flash_fwd_fp32_kernel, on the fp32 cores (TF32 would not keep the
-// fp32 contract of 1e-4).  One block of 64 threads per (b·h, tile of 64
+// fp32 contract of 1e-4).  It also serves the head dims the tensor-core
+// kernel is not built for: bf16 inputs are widened to fp32 as they are read
+// and the output is rounded to bf16 once, at the store (the plain version's
+// arithmetic, in another summation order).  One block of 64 threads per (b·h, tile of 64
 // query rows); thread t owns query row q0 + t: its running max m, sum l and
 // fp32 accumulator acc[D] live in registers.  The q tile (scaled by D^-½)
 // is staged transposed in shared memory, qT[d][t], each K tile transposed,
@@ -80,13 +84,16 @@ constexpr size_t smem_bytes() {
                           size_t(kTile) * D);
 }
 
-template <int D>
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+template <int D, typename T>
 __global__ void __launch_bounds__(kRows)
-    flash_fwd_fp32_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ o,
-                          int Sq,
-                     int Sk, int H, int Hkv, int causal, float scale) {
+    flash_fwd_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o, int Sq,
+                          int Sk, int H, int Hkv, int causal, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* qT = smem;                       // [D][kRows]
   float* kT = qT + D * kRows;             // [D][kKStride]
@@ -103,7 +110,7 @@ __global__ void __launch_bounds__(kRows)
     const int r = i / D, d = i % D;
     float x = 0.f;
     if (q0 + r < Sq)
-      x = q[((size_t(b) * Sq + q0 + r) * H + h) * D + d] * scale;
+      x = widen(q[((size_t(b) * Sq + q0 + r) * H + h) * D + d]) * scale;
     qT[d * kRows + r] = x;
   }
 
@@ -121,8 +128,8 @@ __global__ void __launch_bounds__(kRows)
       float kx = 0.f, vx = 0.f;
       if (k0 + j < Sk) {
         const size_t off = ((size_t(b) * Sk + k0 + j) * Hkv + hk) * D + d;
-        kx = k[off];
-        vx = v[off];
+        kx = widen(k[off]);
+        vx = widen(v[off]);
       }
       kT[d * kKStride + j] = kx;
       vs[j * D + d] = vx;
@@ -184,27 +191,27 @@ __global__ void __launch_bounds__(kRows)
 
   if (qpos < Sq) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    float* out = o + ((size_t(b) * Sq + qpos) * H + h) * D;
+    T* out = o + ((size_t(b) * Sq + qpos) * H + h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) out[d] = acc[d] * inv;
+    for (int d = 0; d < D; ++d) store(out + d, acc[d] * inv);
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch_fp32(const void* q, const void* k, const void* v, void* o, int B,
                 int Sq, int Sk, int H, int Hkv, int causal, float scale,
                 cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  auto kern = flash_fwd_fp32_kernel<D>;
+  auto kern = flash_fwd_fp32_kernel<D, T>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
   kern<<<grid, kRows, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, Hkv,
-      causal, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, Hkv, causal,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -503,23 +510,35 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// o <- attention(q, k, v); dtype 0 = fp32 (the fp32-core kernel), 1 = bf16
-// (the tensor-core kernel); D in {64, 128} (the wrapper refuses anything
-// else).  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an unsupported dtype or D or a tensor map that
-// cuTensorMapEncodeTiled refused.
+// o <- attention(q, k, v); dtype 0 = fp32, 1 = bf16.  bf16 at D 64 or 128
+// runs on the tensor cores; fp32 at D 16, 32, 64, 96 or 128 and bf16 at D
+// 16, 32 or 96 on the fp32 cores.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for another dtype or D (the wrapper
+// refuses them first) or a tensor map that cuTensorMapEncodeTiled refused.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int dtype, int B, int Sq, int Sk, int H, int Hkv,
                         int D, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch_fp32<64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch_fp32<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, scale, s);
-  if (dtype == 1 && D == 64)
-    return tc::launch<64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, scale, s);
-  if (dtype == 1 && D == 128)
-    return tc::launch<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, scale, s);
+#define FP32_CORES(DD, T) \
+  launch_fp32<DD, T>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, scale, s)
+  if (dtype == 0) {
+    switch (D) {
+      case 16: return FP32_CORES(16, float);
+      case 32: return FP32_CORES(32, float);
+      case 64: return FP32_CORES(64, float);
+      case 96: return FP32_CORES(96, float);
+      case 128: return FP32_CORES(128, float);
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 16: return FP32_CORES(16, __nv_bfloat16);
+      case 32: return FP32_CORES(32, __nv_bfloat16);
+      case 64: return tc::launch<64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, scale, s);
+      case 96: return FP32_CORES(96, __nv_bfloat16);
+      case 128: return tc::launch<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, scale, s);
+    }
+  }
+#undef FP32_CORES
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

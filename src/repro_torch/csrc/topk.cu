@@ -8,7 +8,9 @@
 // id and then by position, which is the plain version's stable order.
 //
 // Layout: one block per query, 256 threads.  The query is staged in shared
-// memory; warp w scores candidates w, w + 8, ...: lane l sums the products
+// memory; warp w scores candidates w, w + 8, ...: each neighbour element is
+// read in its stored encoding (fp32, or bf16 widened to fp32 by its bits,
+// which is exact, as the reference kernel casts it) and lane l sums the products
 // of dims l, l + 32, ... with separately rounded multiplies and adds, then
 // the warp's xor-butterfly adds the 32 partials.  That is the order of
 // kernels/ref.lane_dot, so the plain version (kernels/ref.expand_merge_ref)
@@ -27,6 +29,7 @@
 #include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "sort.cuh"
 
@@ -42,9 +45,22 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Neighbour-vector encodings (the wrapper's _ENCODINGS, kernels/topk_kernel.py)
+enum Enc : int { kF32 = 0, kBF16 = 1 };
+
+// Element i of the (B, R, d) neighbour vectors, widened to fp32: bf16 by its
+// bits (exact).
+template <int ENC>
+__device__ __forceinline__ float load_vec(const void* nvecs, size_t i) {
+  if (ENC == kBF16)
+    return __uint_as_float(unsigned(static_cast<const uint16_t*>(nvecs)[i]) << 16);
+  return static_cast<const float*>(nvecs)[i];
+}
+
+template <int ENC>
 __global__ void __launch_bounds__(kThreads)
 expand_merge_kernel(const float* __restrict__ q,
-                    const float* __restrict__ nvecs,
+                    const void* __restrict__ nvecs,
                     const int* __restrict__ nids,
                     const bool* __restrict__ fresh,
                     const int* __restrict__ bid,
@@ -84,10 +100,10 @@ expand_merge_kernel(const float* __restrict__ q,
     float dist = kBig;
     int id = n;
     if (f) {
-      const float* v = nvecs + (b * R + r) * size_t(d);
+      const size_t v = (b * R + r) * size_t(d);
       float vn = 0.f, dot = 0.f;
       for (int k = lane; k < d; k += 32) {
-        const float x = v[k];
+        const float x = load_vec<ENC>(nvecs, v + k);
         vn = __fadd_rn(vn, __fmul_rn(x, x));
         dot = __fadd_rn(dot, __fmul_rn(x, qs[k]));
       }
@@ -126,15 +142,20 @@ size_t expand_merge_smem_bytes(int W, int d) {
 size_t expand_merge_smem_limit() { return kSmemLimit; }
 
 // oid/od/ock (B, ef) <- the beam bid/bd/bck (B, ef) merged with the fresh
-// rows of nvecs (B, R, d) / nids (B, R) scored against q (B, d); W is
-// next_pow2(ef + R).  Returns cudaGetLastError() after the launch.
-int expand_merge(const void* q, const void* nvecs, const void* nids,
+// rows of nvecs (B, R, d) in encoding `enc` (Enc above) / nids (B, R)
+// scored against q (B, d); W is next_pow2(ef + R).  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for an
+// unknown encoding.
+int expand_merge(const void* q, const void* nvecs, int enc, const void* nids,
                  const void* fresh, const void* bid, const void* bd,
                  const void* bck, void* oid, void* od, void* ock, int B,
                  int d, int R, int ef, int n, int W, void* stream) {
-  expand_merge_kernel<<<B, kThreads, expand_merge_smem_bytes(W, d),
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(nvecs),
+  auto kern = enc == kF32 ? expand_merge_kernel<kF32>
+            : enc == kBF16 ? expand_merge_kernel<kBF16> : nullptr;
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  kern<<<B, kThreads, expand_merge_smem_bytes(W, d),
+         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), nvecs,
       static_cast<const int*>(nids), static_cast<const bool*>(fresh),
       static_cast<const int*>(bid), static_cast<const float*>(bd),
       static_cast<const bool*>(bck), static_cast<int*>(oid),

@@ -10,21 +10,43 @@
 //
 // Layout: one thread block per query.  The beam (ids, distances, checked
 // flags; double-buffered), the query row, the scale row (int8, int4), the
-// lookup table (pq), the visited filter packed into 32-bit words and the
-// W·R candidate buffer live in shared memory for the
-// whole launch; the public (B, bits) bool filter is packed on entry and
-// unpacked on exit.  Neighbour rows and vector rows are read straight from
+// lookup table (pq), the visited filter packed into 32-bit words, the
+// round's W·R candidate ids, the compacted fresh candidates and (where it
+// fits) a tile of the round's encoded rows live in shared memory for the
+// whole launch.  Neighbour rows and vector rows are read straight from
 // device memory (no one-hot gathers: those were a TPU workaround).
 //
 // Bound: bytes.  Per round a query reads W neighbour-id rows (R ids each) and
 // one encoded vector row per fresh candidate (dp·4, dp·2, dp, ceil(dp/2) or
 // m bytes); the arithmetic is 2·dp multiply-adds (m lookups for pq) per
 // candidate.  The least time is Σ(n_dist·row_bytes + n_exp·R·id_bytes) plus
-// the beam and filter in and out, over 3.35 TB/s.  The design keeps every
-// other byte (beam, filter, merge buffers) on chip; the per-round cost that
-// remains is latency (dependent gathers, block barriers), which one block per
-// query and a convergence exit per block do not hide.  A later PR can run
-// several queries per block or prefetch the next frontier's rows.
+// the beam and filter in and out, over 3.35 TB/s.  Every other byte stays on
+// chip, so what a round costs is latency: one block per query runs its
+// rounds one after another, and K1 takes the slowest query's rounds times
+// the round's latency.  The round body keeps two dependent device-memory
+// waits, and overlaps the second with the visited test:
+//  1. every warp takes the frontier from the same beam (ballots over the
+//     checked flags; no barrier);
+//  2. warp 0 loads the W·R neighbour ids (all in flight at once), then per
+//     frontier tests every id and inserts the fresh ones with __syncwarp
+//     only, compacting them by ballot in candidate order; meanwhile the
+//     other warps load the same ids and copy the encoded row of every
+//     valid candidate into a shared-memory tile with cp.async (every copy
+//     issued before the wait), fresh or not, since the test is not known
+//     yet: more bytes, one latency fewer;
+//  3. barrier; each warp scores its share of the fresh candidates from the
+//     tile, the butterflies of four candidates interleaved;
+//  4. barrier; the merge by rank over the compacted candidates; barrier.
+// The tile holds W·R rows, so it grows with W·R·row_bytes (fp32 at dp 384,
+// W 4, R 32: 192 KB).  Where the layout with the tile would pass the 227 KB
+// limit, the launch takes the layout without it: step 2 is warp 0's alone
+// and step 3 reads the fresh rows straight from device memory (one more
+// dependent wait a round), so every shape whose state fits without the tile
+// still runs.
+// Bloom hashes reduce modulo a power-of-two size with a mask.
+// The public (B, bits) bool filter is packed on entry and unpacked on exit
+// with 16-byte accesses, a scalar head and tail around them where a row
+// does not start on a 16-byte boundary (exact mode: bits = n + 1).
 //
 // Semantics, held exactly against the plain version (kernels/ref.py):
 //  * frontier: the first W unchecked beam slots with id < n, in beam order;
@@ -49,9 +71,10 @@
 //    one thread per candidate (kernels/ref.lane_pq_lut);
 //  * merge: equal to the stable argsort of [beam ; new] cut to ef.  The beam
 //    is distance-sorted (init_state and every round produce it sorted), so
-//    a beam entry lands at i + #{fresh with d < its d}, and a fresh entry
-//    at #{beam with d <= its d} + #{fresh before it in (d, position)
-//    order}; non-fresh candidates (+inf) can never reach the first ef.
+//    a beam entry lands at i + #{fresh with d < its d}, and the k-th fresh
+//    entry (in candidate order) at #{beam with d <= its d} + #{fresh k'
+//    with d' < d, or d' == d and k' < k}; non-fresh candidates (+inf) can
+//    never reach the first ef.
 //  * a round without work is a fixed point, so each block exits on its own.
 
 #include <cuda_runtime.h>
@@ -61,26 +84,32 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kGroup = 4;  // candidates whose warp sums interleave
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kSmemLimit = 232448;  // 227 KB per block on sm_90
+constexpr int kMaxDevices = 64;
 
 // Vector-table encodings (the wrapper's ENCODINGS, kernels/traversal_kernel.py)
 enum Enc : int { kF32 = 0, kBF16 = 1, kI8 = 2, kI4 = 3, kPQ = 4 };
 
 struct Layout {
-  size_t q, scl, lut, id0, id1, d0, d1, ck0, ck1, vis, cid, cd, cfr, fu, scal, total;
+  size_t q, scl, lut, id0, id1, d0, d1, ck0, ck1, vis, fu, cid, cfr, fid,
+      fpos, fd, tile, scal, total;
+  int stride;  // bytes between two rows of the tile; 0: no tile
 };
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
 // dq: width of the decoded rows and of the query (2·hp for int4, dp else);
-// lut_width: m·ksub for pq, else 0.
+// row_bytes: bytes of one stored row; lut_width: m·ksub for pq, else 0;
+// tiled: room for the round's W·R encoded rows.
 inline Layout make_layout(int dq, int ef, int W, int R, int vbits,
-                          int has_scale, int lut_width) {
+                          int has_scale, int lut_width, int row_bytes, bool tiled) {
   Layout L;
   const size_t WR = size_t(W) * R;
   size_t o = 0;
   auto take = [&o](size_t bytes) { size_t at = o; o = align16(o + bytes); return at; };
+  L.stride = tiled ? static_cast<int>(align16(row_bytes)) : 0;
   L.q = take(sizeof(float) * dq);
   L.scl = take(has_scale ? sizeof(float) * dq : 0);
   L.lut = take(sizeof(float) * lut_width);
@@ -90,22 +119,37 @@ inline Layout make_layout(int dq, int ef, int W, int R, int vbits,
   L.d1 = take(sizeof(float) * ef);
   L.ck0 = take(sizeof(int) * ef);
   L.ck1 = take(sizeof(int) * ef);
-  L.vis = take(sizeof(unsigned) * ((size_t(vbits) + 31) / 32));
+  // one word past the filter: the unpack reads bits across a word boundary
+  L.vis = take(sizeof(unsigned) * ((size_t(vbits) + 31) / 32 + 1));
+  L.fu = take(sizeof(int) * W * (kThreads / 32));  // one frontier per warp
   L.cid = take(sizeof(int) * WR);
-  L.cd = take(sizeof(float) * WR);
   L.cfr = take(sizeof(int) * WR);
-  L.fu = take(sizeof(int) * W);
+  L.fid = take(sizeof(int) * WR);
+  L.fpos = take(sizeof(int) * WR);
+  L.fd = take(sizeof(float) * WR);
+  L.tile = take(WR * L.stride);
   L.scal = take(16);
   L.total = o;
   return L;
 }
 
+// The layout with the tile where it fits the limit, else the one without.
+inline Layout choose_layout(int dq, int ef, int W, int R, int vbits,
+                            int has_scale, int lut_width, int row_bytes) {
+  const Layout L = make_layout(dq, ef, W, R, vbits, has_scale, lut_width, row_bytes, true);
+  if (L.total <= kSmemLimit) return L;
+  return make_layout(dq, ef, W, R, vbits, has_scale, lut_width, row_bytes, false);
+}
+
+// mask: bits - 1 when bits is a power of two (the modulo is then a mask,
+// the same value), else 0.
 __device__ __forceinline__ void bloom_hashes(unsigned x, unsigned bits,
-                                             unsigned& h1, unsigned& h2) {
+                                             unsigned mask, unsigned& h1,
+                                             unsigned& h2) {
   const unsigned a = (x * 0x9E3779B1u) ^ ((x * 0x85EBCA77u) >> 15);
   const unsigned b = (x * 0xC2B2AE3Du) ^ (x >> 13) ^ (x * 0x27D4EB2Fu);
-  h1 = a % bits;
-  h2 = b % bits;
+  h1 = mask ? a & mask : a % bits;
+  h2 = mask ? b & mask : b % bits;
 }
 
 __device__ __forceinline__ bool test_bit(const unsigned* vis, unsigned bit) {
@@ -121,21 +165,125 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Element k of stored row `row` (vw stored values per row), widened to fp32
+// Bit i set for each non-zero byte i of x (4 bytes -> 4 bits): the high bit
+// of each byte is set iff the byte is non-zero, then the four high bits are
+// gathered into bits 21..24 by one multiply (no two partial products meet).
+__device__ __forceinline__ unsigned nonzero_bits4(unsigned x) {
+  const unsigned m = (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+  return (((m >> 7) * 0x00204081u) >> 21) & 0xfu;
+}
+
+__device__ __forceinline__ unsigned nonzero_bits16(uint4 x) {
+  return nonzero_bits4(x.x) | (nonzero_bits4(x.y) << 4) |
+         (nonzero_bits4(x.z) << 8) | (nonzero_bits4(x.w) << 12);
+}
+
+// Four bits -> four bytes of 0 or 1 (the inverse spread).
+__device__ __forceinline__ unsigned bytes_of_bits4(unsigned nib) {
+  return (nib * 0x00204081u) & 0x01010101u;
+}
+
+// OR up to 16 bits into the packed filter at bit offset o.
+__device__ __forceinline__ void or_bits(unsigned* vis, int o, unsigned bits) {
+  if (bits == 0) return;
+  const int w = o >> 5, s = o & 31;
+  atomicOr(&vis[w], bits << s);
+  if (s > 16) atomicOr(&vis[w + 1], bits >> (32 - s));
+}
+
+// 16 bits of the packed filter from bit offset o.
+__device__ __forceinline__ unsigned get_bits16(const unsigned* vis, int o) {
+  const int w = o >> 5, s = o & 31;
+  const unsigned long long two =
+      (static_cast<unsigned long long>(vis[w + 1]) << 32) | vis[w];
+  return static_cast<unsigned>(two >> s) & 0xffffu;
+}
+
+// The bytes of row [p, p + len) that lie before its first 16-byte boundary
+// (head) and the number of whole 16-byte chunks after them.
+__device__ __forceinline__ void split_row(const void* p, int len, int& head,
+                                          int& chunks) {
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+  head = min(len, (16 - mis) & 15);
+  chunks = (len - head) >> 4;
+}
+
+// The (bits,) bool row at `row` packed into vis (zeroed): any non-zero byte
+// is a set bit.  Whole chunks are read with 16-byte loads, four per thread
+// in flight; the head and tail bytes one by one.
+__device__ __forceinline__ void pack_filter(const unsigned char* __restrict__ row,
+                                            int bits, unsigned* vis) {
+  int head, chunks;
+  split_row(row, bits, head, chunks);
+  const int tail = head + 16 * chunks;
+  const uint4* body = reinterpret_cast<const uint4*>(row + head);
+  constexpr int U = 4;
+  for (int c0 = threadIdx.x; c0 < chunks; c0 += U * blockDim.x) {
+    uint4 x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + u * blockDim.x;
+      if (c < chunks) x[u] = body[c];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + u * blockDim.x;
+      if (c < chunks) or_bits(vis, head + 16 * c, nonzero_bits16(x[u]));
+    }
+  }
+  for (int i = threadIdx.x; i < head + (bits - tail); i += blockDim.x) {
+    const int at = i < head ? i : tail + (i - head);
+    if (row[at]) or_bits(vis, at, 1u);
+  }
+}
+
+// The packed filter written back as a (bits,) bool row of 0/1 bytes.
+__device__ __forceinline__ void unpack_filter(const unsigned* vis, int bits,
+                                              unsigned char* __restrict__ row) {
+  int head, chunks;
+  split_row(row, bits, head, chunks);
+  const int tail = head + 16 * chunks;
+  uint4* body = reinterpret_cast<uint4*>(row + head);
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+    const unsigned b16 = get_bits16(vis, head + 16 * c);
+    body[c] = make_uint4(bytes_of_bits4(b16 & 0xf), bytes_of_bits4((b16 >> 4) & 0xf),
+                         bytes_of_bits4((b16 >> 8) & 0xf), bytes_of_bits4(b16 >> 12));
+  }
+  for (int i = threadIdx.x; i < head + (bits - tail); i += blockDim.x) {
+    const int at = i < head ? i : tail + (i - head);
+    row[at] = (vis[at >> 5] >> (at & 31)) & 1u;
+  }
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Element k of a stored row (vw stored values per row), widened to fp32
 // before any scale.  bf16 widens by its bits (exact); int4 reads the low
 // nibble of byte k for k < vw and the high nibble of byte k - vw otherwise,
 // sign-extended from 4 bits without shifting a negative value.
 template <int ENC>
-__device__ __forceinline__ float load_elem(const void* vec, size_t row, int vw, int k) {
-  if (ENC == kF32) return static_cast<const float*>(vec)[row * vw + k];
+__device__ __forceinline__ float load_elem(const unsigned char* row, int vw, int k) {
+  if (ENC == kF32) return reinterpret_cast<const float*>(row)[k];
   if (ENC == kBF16) {
-    const unsigned bits = static_cast<const uint16_t*>(vec)[row * vw + k];
+    const unsigned bits = reinterpret_cast<const uint16_t*>(row)[k];
     return __uint_as_float(bits << 16);
   }
-  if (ENC == kI8) return static_cast<float>(static_cast<const int8_t*>(vec)[row * vw + k]);
+  if (ENC == kI8) return static_cast<float>(reinterpret_cast<const int8_t*>(row)[k]);
   // kI4
   const bool high = k >= vw;
-  const unsigned byte = static_cast<const uint8_t*>(vec)[row * vw + (high ? k - vw : k)];
+  const unsigned byte = row[high ? k - vw : k];
   const int nib = static_cast<int>(high ? (byte >> 4) : (byte & 0xFu));
   return static_cast<float>(nib >= 8 ? nib - 16 : nib);
 }
@@ -143,7 +291,7 @@ __device__ __forceinline__ float load_elem(const void* vec, size_t row, int vw, 
 template <typename IdT, int ENC>
 __global__ void __launch_bounds__(kThreads)
 pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
-                       const void* __restrict__ vec,
+                       const unsigned char* __restrict__ vec,
                        const float* __restrict__ scale,
                        const float* __restrict__ codebook,
                        const int* __restrict__ bid_in,
@@ -155,8 +303,8 @@ pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
                        unsigned char* __restrict__ vis_out,
                        unsigned char* __restrict__ fresh_out,
                        int* __restrict__ cnt_out, int dq, int vw, int ksub,
-                       int n, int R, int ef, int W, int vbits, int exact,
-                       int rounds, Layout L) {
+                       int row_bytes, int chunk, int n, int R, int ef, int W,
+                       int vbits, int exact, int rounds, Layout L) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + L.q);
   float* scl = reinterpret_cast<float*>(smem + L.scl);
@@ -168,11 +316,14 @@ pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
   int* ck_c = reinterpret_cast<int*>(smem + L.ck0);
   int* ck_n = reinterpret_cast<int*>(smem + L.ck1);
   unsigned* vis = reinterpret_cast<unsigned*>(smem + L.vis);
-  int* cid = reinterpret_cast<int*>(smem + L.cid);
-  float* cd = reinterpret_cast<float*>(smem + L.cd);
-  int* cfr = reinterpret_cast<int*>(smem + L.cfr);
   int* fu = reinterpret_cast<int*>(smem + L.fu);
-  int* nsel = reinterpret_cast<int*>(smem + L.scal);
+  int* cid = reinterpret_cast<int*>(smem + L.cid);
+  int* cfr = reinterpret_cast<int*>(smem + L.cfr);
+  int* fid = reinterpret_cast<int*>(smem + L.fid);
+  int* fpos = reinterpret_cast<int*>(smem + L.fpos);
+  float* fd = reinterpret_cast<float*>(smem + L.fd);
+  unsigned char* tile = smem + L.tile;
+  int* nf_s = reinterpret_cast<int*>(smem + L.scal);
   float* qn_s = reinterpret_cast<float*>(smem + L.scal + 4);
 
   const int b = blockIdx.x;
@@ -184,9 +335,12 @@ pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
   const int WR = W * R;
   const int nwords = (vbits + 31) >> 5;
   const unsigned ubits = static_cast<unsigned>(vbits);
+  const unsigned bmask = (ubits & (ubits - 1)) == 0 ? ubits - 1 : 0u;
   const bool scaled = scale != nullptr;
+  const int cpr = row_bytes / chunk;  // copies per row (chunk 1: bytes)
 
-  // ---- load the query, the scale, the beam and the packed filter --------
+  // ---- load the query, the scale, the beam; pack the filter --------------
+  for (int w = tid; w <= nwords; w += nthr) vis[w] = 0u;
   for (int k = tid; k < dq; k += nthr) qs[k] = q[size_t(b) * dq + k];
   if (scaled)
     for (int k = tid; k < dq; k += nthr) scl[k] = scale[k];
@@ -196,14 +350,9 @@ pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
     d_c[i] = bd_in[g];
     ck_c[i] = bck_in[g] ? 1 : 0;
   }
-  const unsigned char* vrow = vis_in + size_t(b) * vbits;
-  for (int w = warp; w < nwords; w += nwarps) {  // one warp per 32-bit word
-    const int bit = w * 32 + lane;
-    const unsigned word = __ballot_sync(kFull, bit < vbits && vrow[bit] != 0);
-    if (lane == 0) vis[w] = word;
-  }
   for (int j = tid; j < WR; j += nthr) cfr[j] = 0;
   __syncthreads();
+  pack_filter(vis_in + size_t(b) * vbits, vbits, vis);
   if (warp == 0) {
     float s = 0.f;
     for (int k = lane; k < dq; k += 32) s = __fadd_rn(s, __fmul_rn(qs[k], qs[k]));
@@ -229,127 +378,207 @@ pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
 
   int c_dist = 0, c_hops = 0, c_exp = 0;  // thread 0's counters
   for (int it = 0; it < rounds; ++it) {
-    // ---- frontier: the first W unchecked live slots, marked checked ------
+    // ---- 1. every warp: the frontier, by ballots over the same beam -------
+    int found = 0, s_last = -1;
+    int* my_fu = fu + warp * W;
+    for (int base = 0; base < ef && found < W; base += 32) {
+      const int i = base + lane;
+      const bool un = i < ef && !ck_c[i] && id_c[i] < n;
+      const unsigned m = __ballot_sync(kFull, un);
+      const int rank = found + __popc(m & ((1u << lane) - 1u));
+      if (un && rank < W) my_fu[rank] = id_c[i];
+      const int took = min(W - found, __popc(m));
+      const unsigned last = __ballot_sync(kFull, un && rank == found + took - 1);
+      if (took > 0) s_last = base + __ffs(last) - 1;
+      found += took;
+    }
+    if (found == 0) break;  // converged: a round without work is a fixed point
+    __syncwarp();
+
     if (warp == 0) {
-      int found = 0;
-      for (int base = 0; base < ef && found < W; base += 32) {
-        const int i = base + lane;
-        const bool un = i < ef && !ck_c[i] && id_c[i] < n;
-        const unsigned m = __ballot_sync(kFull, un);
-        const int rank = __popc(m & ((1u << lane) - 1u));
-        if (un && found + rank < W) {
-          fu[found + rank] = id_c[i];
-          ck_c[i] = 1;
+      // ---- 2a. warp 0: the W·R ids (sentinel row n past the found
+      // frontiers, every load issued before the first is stored), then per
+      // frontier every id tested, the fresh ones inserted and compacted in
+      // candidate order
+      constexpr int U = 8;
+      for (int j0 = 0; j0 < WR; j0 += 32 * U) {
+        IdT v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = j0 + 32 * u + lane;
+          const int w = j / R;
+          if (j < WR) v[u] = nbr[size_t(w < found ? my_fu[w] : n) * R + (j - w * R)];
         }
-        found = min(W, found + __popc(m));
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = j0 + 32 * u + lane;
+          if (j < WR) cid[j] = static_cast<int>(v[u]);
+        }
       }
-      if (lane == 0) {
-        for (int w = found; w < W; ++w) fu[w] = n;  // sentinel row
-        *nsel = found;
+      __syncwarp();
+      int nf = 0;
+      for (int w = 0; w < W; ++w) {
+        for (int j0 = 0; j0 < R; j0 += 32) {
+          const int j = j0 + lane;
+          if (j < R) {
+            const int v = cid[w * R + j];
+            const bool valid = v < n;
+            const unsigned key = valid ? static_cast<unsigned>(v) : 0u;
+            bool seen;
+            if (exact) {
+              seen = test_bit(vis, key);
+            } else {
+              unsigned h1, h2;
+              bloom_hashes(key, ubits, bmask, h1, h2);
+              seen = test_bit(vis, h1) && test_bit(vis, h2);
+            }
+            cfr[w * R + j] = (valid && !seen) ? 1 : 0;
+          }
+        }
+        __syncwarp();
+        for (int j0 = 0; j0 < R; j0 += 32) {
+          const int j = j0 + lane;
+          const bool f = j < R && cfr[w * R + j];
+          const unsigned m = __ballot_sync(kFull, f);
+          if (f) {
+            const unsigned key = static_cast<unsigned>(cid[w * R + j]);
+            if (exact) {
+              set_bit(vis, key);
+            } else {
+              unsigned h1, h2;
+              bloom_hashes(key, ubits, bmask, h1, h2);
+              set_bit(vis, h1);
+              set_bit(vis, h2);
+            }
+            const int k = nf + __popc(m & ((1u << lane) - 1u));
+            fid[k] = static_cast<int>(key);
+            fpos[k] = w * R + j;
+          }
+          nf += __popc(m);
+        }
+        __syncwarp();
       }
+      if (lane == 0) *nf_s = nf;
+    } else if (L.stride) {
+      // ---- 2b. the other warps meanwhile: the encoded rows of every
+      // candidate with a valid id into its tile row, fresh or not (the
+      // visited test is not known yet), every id and copy issued before
+      // the wait
+      const int gw = warp - 1, ngw = nwarps - 1;
+      const int copies = (WR > gw ? (WR - gw + ngw - 1) / ngw : 0) * cpr;
+      constexpr int U = 4;
+      for (int e0 = lane; e0 < copies; e0 += 32 * U) {
+        int c[U];
+        IdT v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = e0 + 32 * u;
+          c[u] = gw + ngw * (e / cpr);
+          const int w = c[u] / R;
+          if (e < copies)
+            v[u] = nbr[size_t(w < found ? my_fu[w] : n) * R + (c[u] - w * R)];
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = e0 + 32 * u;
+          if (e < copies && static_cast<int>(v[u]) < n) {
+            const int o = (e - (e / cpr) * cpr) * chunk;
+            if (chunk >= 4)
+              cp_async(tile + size_t(c[u]) * L.stride + o,
+                       vec + size_t(v[u]) * row_bytes + o, chunk);
+            else
+              tile[size_t(c[u]) * L.stride + o] = vec[size_t(v[u]) * row_bytes + o];
+          }
+        }
+      }
+      cp_async_wait_all();
     }
     __syncthreads();
-    const int found = *nsel;
-    if (found == 0) break;  // converged: a round without work is a fixed point
+    const int nf = *nf_s;
 
-    // ---- per frontier: gather ids, test, then insert the fresh ones ------
-    for (int w = 0; w < W; ++w) {
-      const size_t row = size_t(fu[w]) * R;
-      for (int j = tid; j < R; j += nthr) {
-        const int v = static_cast<int>(nbr[row + j]);
-        const bool valid = v < n;
-        const unsigned key = valid ? static_cast<unsigned>(v) : 0u;
-        bool seen;
-        if (exact) {
-          seen = test_bit(vis, key);
-        } else {
-          unsigned h1, h2;
-          bloom_hashes(key, ubits, h1, h2);
-          seen = test_bit(vis, h1) && test_bit(vis, h2);
-        }
-        cid[w * R + j] = v;
-        cfr[w * R + j] = (valid && !seen) ? 1 : 0;
-      }
-      __syncthreads();
-      for (int j = tid; j < R; j += nthr) {
-        if (!cfr[w * R + j]) continue;
-        const unsigned key = static_cast<unsigned>(cid[w * R + j]);
-        if (exact) {
-          set_bit(vis, key);
-        } else {
-          unsigned h1, h2;
-          bloom_hashes(key, ubits, h1, h2);
-          set_bit(vis, h1);
-          set_bit(vis, h2);
-        }
-      }
-      __syncthreads();
-    }
-
-    // ---- distances ---------------------------------------------------------
-    if (ENC == kPQ) {  // one thread per candidate: m lookups, s ascending
-      for (int c = tid; c < WR; c += nthr) {
-        if (!cfr[c]) {
-          cd[c] = INFINITY;
-          continue;
-        }
-        const uint8_t* code = static_cast<const uint8_t*>(vec) + size_t(cid[c]) * vw;
+    // ---- 3. each warp: its share of the fresh candidates scored, from the
+    // tile or (without one) from device memory ------------------------------
+    const int mine = nf > warp ? (nf - warp + nwarps - 1) / nwarps : 0;
+    auto row_of = [&](int k) {
+      return L.stride ? tile + size_t(fpos[k]) * L.stride
+                      : vec + size_t(fid[k]) * row_bytes;
+    };
+    if (ENC == kPQ) {  // one lane per candidate: m lookups, s ascending
+      for (int i = lane; i < mine; i += 32) {
+        const int k = warp + nwarps * i;
+        const unsigned char* code = row_of(k);
         float acc = qn;
         for (int s = 0; s < vw; ++s) acc = __fadd_rn(acc, lut[s * ksub + code[s]]);
-        cd[c] = fmaxf(acc, 0.f);
+        fd[k] = fmaxf(acc, 0.f);
       }
-    } else {  // one warp per candidate
-      for (int c = warp; c < WR; c += nwarps) {
-        if (!cfr[c]) {
-          if (lane == 0) cd[c] = INFINITY;
-          continue;
+    } else {  // the warp per candidate, lane_dot's order; the butterflies
+              // of kGroup candidates interleave (each one's sums unchanged)
+      for (int i0 = 0; i0 < mine; i0 += kGroup) {
+        float vn[kGroup], dot[kGroup];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          vn[g] = 0.f;
+          dot[g] = 0.f;
+          if (i0 + g < mine) {
+            const unsigned char* row = row_of(warp + nwarps * (i0 + g));
+            for (int kk = lane; kk < dq; kk += 32) {
+              float x = load_elem<ENC>(row, vw, kk);
+              if (scaled) x = __fmul_rn(x, scl[kk]);
+              vn[g] = __fadd_rn(vn[g], __fmul_rn(x, x));
+              dot[g] = __fadd_rn(dot[g], __fmul_rn(x, qs[kk]));
+            }
+          }
         }
-        const size_t row = size_t(cid[c]);
-        float vn = 0.f, dot = 0.f;
-        for (int k = lane; k < dq; k += 32) {
-          float x = load_elem<ENC>(vec, row, vw, k);
-          if (scaled) x = __fmul_rn(x, scl[k]);
-          vn = __fadd_rn(vn, __fmul_rn(x, x));
-          dot = __fadd_rn(dot, __fmul_rn(x, qs[k]));
+#pragma unroll
+        for (int o = 16; o; o >>= 1) {
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            vn[g] += __shfl_xor_sync(kFull, vn[g], o);
+            dot[g] += __shfl_xor_sync(kFull, dot[g], o);
+          }
         }
-        vn = warp_sum(vn);
-        dot = warp_sum(dot);
-        if (lane == 0) cd[c] = fmaxf(__fsub_rn(__fadd_rn(qn, vn), 2.f * dot), 0.f);
+        if (lane == 0) {
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g)
+            if (i0 + g < mine)
+              fd[warp + nwarps * (i0 + g)] =
+                  fmaxf(__fsub_rn(__fadd_rn(qn, vn[g]), 2.f * dot[g]), 0.f);
+        }
       }
     }
     __syncthreads();
 
-    // ---- stable merge of the sorted beam with the fresh candidates --------
-    for (int i = tid; i < ef; i += nthr) {
-      const float key = d_c[i];
-      int pos = i;
-      for (int k = 0; k < WR; ++k) pos += (cfr[k] && cd[k] < key);
-      if (pos < ef) {
-        id_n[pos] = id_c[i];
-        d_n[pos] = key;
-        ck_n[pos] = ck_c[i];
-      }
-    }
-    for (int j = tid; j < WR; j += nthr) {
-      if (!cfr[j]) continue;
-      const float key = cd[j];
-      int lo = 0, hi = ef;  // #{beam entries with d <= key}
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (d_c[mid] <= key) lo = mid + 1; else hi = mid;
-      }
-      int pos = lo;
-      for (int k = 0; k < WR; ++k)
-        pos += (cfr[k] && (cd[k] < key || (cd[k] == key && k < j)));
-      if (pos < ef) {
-        id_n[pos] = cid[j];
-        d_n[pos] = key;
-        ck_n[pos] = 0;
+    // ---- 4. stable merge of the sorted beam with the fresh candidates ----
+    // (the frontier's slots, the unchecked live ones up to s_last, leave
+    // checked)
+    for (int e = tid; e < ef + nf; e += nthr) {
+      if (e < ef) {
+        const float key = d_c[e];
+        int pos = e;
+        for (int k = 0; k < nf; ++k) pos += fd[k] < key;
+        if (pos < ef) {
+          id_n[pos] = id_c[e];
+          d_n[pos] = key;
+          ck_n[pos] = ck_c[e] || (e <= s_last && id_c[e] < n);
+        }
+      } else {
+        const int j = e - ef;
+        const float key = fd[j];
+        int lo = 0, hi = ef;  // #{beam entries with d <= key}
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (d_c[mid] <= key) lo = mid + 1; else hi = mid;
+        }
+        int pos = lo;
+        for (int k = 0; k < nf; ++k) pos += fd[k] < key || (fd[k] == key && k < j);
+        if (pos < ef) {
+          id_n[pos] = fid[j];
+          d_n[pos] = key;
+          ck_n[pos] = 0;
+        }
       }
     }
     if (tid == 0) {
-      int nf = 0;
-      for (int k = 0; k < WR; ++k) nf += cfr[k];
       c_dist += nf;
       c_hops += 1;
       c_exp += found;
@@ -367,11 +596,7 @@ pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
     bd_out[g] = d_c[i];
     bck_out[g] = ck_c[i] ? 1 : 0;
   }
-  unsigned char* orow = vis_out + size_t(b) * vbits;
-  for (int w = warp; w < nwords; w += nwarps) {
-    const int bit = w * 32 + lane;
-    if (bit < vbits) orow[bit] = (vis[w] >> lane) & 1u;
-  }
+  unpack_filter(vis, vbits, vis_out + size_t(b) * vbits);
   if (fresh_out != nullptr)
     for (int j = tid; j < WR; j += nthr) fresh_out[size_t(b) * WR + j] = cfr[j] ? 1 : 0;
   if (cnt_out != nullptr && tid == 0) {
@@ -387,28 +612,53 @@ struct Args {
   int B, dq, vw, ksub, n, R, ef, W, vbits, exact, rounds;
 };
 
+inline int stored_row_bytes(int enc, int vw) {
+  return enc == kF32 ? 4 * vw : enc == kBF16 ? 2 * vw : vw;
+}
+
+// The widest copy (16, 8 or 4 bytes; 1 = byte by byte) that divides the row
+// and the table's base address.
+inline int copy_bytes(const void* vec, int row_bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(vec);
+  for (int c = 16; c >= 4; c >>= 1)
+    if (row_bytes % c == 0 && a % c == 0) return c;
+  return 1;
+}
+
 template <typename IdT, int ENC>
 int launch(const Args& a, cudaStream_t stream) {
   const int lut_width = ENC == kPQ ? a.vw * a.ksub : 0;
-  const Layout L = make_layout(a.dq, a.ef, a.W, a.R, a.vbits, a.scale != nullptr,
-                               lut_width);
+  const int row_bytes = stored_row_bytes(ENC, a.vw);
+  const Layout L = choose_layout(a.dq, a.ef, a.W, a.R, a.vbits, a.scale != nullptr,
+                                 lut_width, row_bytes);
   if (L.total > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  // the opt-in size is raised once per device and instantiation, to the
+  // largest size asked for so far
+  static size_t opted[kMaxDevices];
   if (L.total > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(pilot_traversal_kernel<IdT, ENC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.total));
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev >= kMaxDevices || L.total > opted[dev]) {
+      e = cudaFuncSetAttribute(pilot_traversal_kernel<IdT, ENC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(L.total));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (dev < kMaxDevices) opted[dev] = L.total;
+    }
   }
   pilot_traversal_kernel<IdT, ENC><<<a.B, kThreads, L.total, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const IdT*>(a.nbr), a.vec,
+      static_cast<const float*>(a.q), static_cast<const IdT*>(a.nbr),
+      static_cast<const unsigned char*>(a.vec),
       static_cast<const float*>(a.scale), static_cast<const float*>(a.codebook),
       static_cast<const int*>(a.bid_in), static_cast<const float*>(a.bd_in),
       static_cast<const unsigned char*>(a.bck_in),
       static_cast<const unsigned char*>(a.vis_in), static_cast<int*>(a.bid_out),
       static_cast<float*>(a.bd_out), static_cast<unsigned char*>(a.bck_out),
       static_cast<unsigned char*>(a.vis_out), static_cast<unsigned char*>(a.fresh_out),
-      static_cast<int*>(a.cnt_out), a.dq, a.vw, a.ksub, a.n, a.R, a.ef, a.W,
-      a.vbits, a.exact, a.rounds, L);
+      static_cast<int*>(a.cnt_out), a.dq, a.vw, a.ksub, row_bytes,
+      copy_bytes(a.vec, row_bytes), a.n, a.R, a.ef, a.W, a.vbits, a.exact,
+      a.rounds, L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -432,9 +682,12 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Shared memory of one block for a table of encoding `enc` with vw stored
+// values per row (Enc above), in the layout a launch takes.
 size_t pilot_traversal_smem_bytes(int dq, int ef, int W, int R, int vbits,
-                                  int has_scale, int lut_width) {
-  return make_layout(dq, ef, W, R, vbits, has_scale, lut_width).total;
+                                  int has_scale, int lut_width, int enc, int vw) {
+  return choose_layout(dq, ef, W, R, vbits, has_scale, lut_width,
+                       stored_row_bytes(enc, vw)).total;
 }
 
 // The most shared memory a launch may ask for; pilot_traversal refuses more.
@@ -445,7 +698,7 @@ size_t pilot_traversal_smem_limit() { return kSmemLimit; }
 // vec: (n+1, vw) table in encoding `enc` (Enc above); scale: (dq,) fp32 or
 // null (dense without scale); codebook: (dq, vw·ksub) fp32 for pq, else
 // null.  q is (B, dq).  fresh_out (B, W·R) and cnt_out (B, 3) = (n_dist,
-// n_hops, n_exp) deltas are written when not null.  Returns
+// n_hops, n_exp) deltas are written whole when not null.  Returns
 // cudaGetLastError() after the launch.
 int pilot_traversal(const void* q, const void* nbr, int id_bytes,
                     const void* vec, int enc, int vw, const void* scale,

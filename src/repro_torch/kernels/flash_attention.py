@@ -9,10 +9,10 @@ dtype.  The TPU kernel's repeat of K/V over the query group, its
 kernel reads the key head ``h // (H // Hkv)`` directly and masks the tail
 rows and keys itself.
 
-The wrapper launches a kernel for CUDA tensors, chosen by dtype, and runs
-``kernels/ref.flash_attention_ref`` for CPU tensors.  It counts every
-launch in ``flash_attention.launches`` and the bf16 kernel's in
-``flash_attention.bf16_launches``.
+The wrapper launches a kernel for CUDA tensors, chosen by dtype and head
+dim, and runs ``kernels/ref.flash_attention_ref`` for CPU tensors.  It
+counts every launch in ``flash_attention.launches`` and the tensor-core
+kernel's (bf16 at D 64 or 128) in ``flash_attention.bf16_launches``.
 
 Bound and design (details in the source): at the RAG path's shape the
 operations bound it (2·B·H·S·(S+1)·D on the bf16 tensor cores).  bf16 runs
@@ -21,7 +21,10 @@ shared memory, K/V tiles of 128 keys stream through a two-stage TMA ring,
 and S = q·kᵀ and P·V are wgmma products with an fp32 online softmax
 between them (P rounded to bf16 as the A operand of P·V, as the jnp model
 reference rounds it).  fp32 runs on the fp32 cores, one thread per query
-row, K/V tiles of 64 keys in shared memory (TF32 would not keep 1e-4).
+row, K/V tiles of 64 keys in shared memory (TF32 would not keep 1e-4); so
+does bf16 at the head dims the tensor-core kernel is not built for (16, 32,
+96: the ``reduced()`` configs' D 16 among them), widened to fp32 as it is
+read and rounded to bf16 once, at the store.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (64, 128)                        # the kernel's template D
+HEAD_DIMS = (16, 32, 64, 96, 128)            # the kernels' template D
+TENSOR_CORE_HEAD_DIMS = (64, 128)            # bf16 on the tensor cores
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -59,7 +63,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, Sq, H, D); k, v (B, Sk, Hkv, D), H % Hkv == 0; one dtype,
     float32 or bfloat16.  Returns (B, Sq, H, D) in q's dtype.  Causal masks
     ``q_pos >= k_pos`` with q and k both starting at position 0.  On the
-    card D must be 64 or 128."""
+    card D must be one of ``HEAD_DIMS``."""
     if _build.on_cpu("flash attention", q, k, v):
         return flash_attention_ref(q, k, v, causal=causal)
     B, Sq, H, D = q.shape
@@ -84,7 +88,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         1.0 / math.sqrt(D), _build.stream_of(q))
     _build.check(lib, rc, "flash_attention launch")
     flash_attention.launches += 1
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and D in TENSOR_CORE_HEAD_DIMS:
         flash_attention.bf16_launches += 1
     return o
 

@@ -29,6 +29,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import expand_merge_ref
 
+# neighbour-vector encoding codes (``Enc`` in csrc/topk.cu)
+_ENCODINGS = {torch.float32: 0, torch.bfloat16: 1}
+
 
 def _lib():
     lib = _build.load("topk")
@@ -38,7 +41,8 @@ def _lib():
         lib.expand_merge_smem_limit.restype = ctypes.c_size_t
         lib.expand_merge_smem_limit.argtypes = []
         lib.expand_merge.restype = ctypes.c_int
-        lib.expand_merge.argtypes = ([ctypes.c_void_p] * 10
+        lib.expand_merge.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                                     + [ctypes.c_void_p] * 8
                                      + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return lib
 
@@ -48,9 +52,11 @@ def fused_expand_merge(q: torch.Tensor, nvecs: torch.Tensor,
                        beam_id: torch.Tensor, beam_d: torch.Tensor,
                        beam_ck: torch.Tensor, n: int
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q (B, d) fp32; nvecs (B, R, d) fp32; nids (B, R) int32; fresh (B, R)
-    bool; beam_* (B, ef) beam.  Returns the merged (ids, dists, checked)
-    (B, ef).  Candidates that are not fresh enter as (BIG, id n, checked)."""
+    """q (B, d) fp32; nvecs (B, R, d) fp32 or bf16 (the kernel widens bf16
+    by its bits, as the plain version's ``.float()`` does); nids (B, R)
+    int32; fresh (B, R) bool; beam_* (B, ef) beam.  Returns the merged
+    (ids, dists, checked) (B, ef).  Candidates that are not fresh enter as
+    (BIG, id n, checked)."""
     if _build.on_cpu("expand merge", q, nvecs, nids, fresh, beam_id, beam_d,
                      beam_ck):
         return expand_merge_ref(q, nvecs, nids, fresh, beam_id, beam_d,
@@ -64,8 +70,9 @@ def fused_expand_merge(q: torch.Tensor, nvecs: torch.Tensor,
         raise ValueError(f"shapes q {tuple(q.shape)}, nvecs "
                          f"{tuple(nvecs.shape)}, nids {tuple(nids.shape)}, "
                          f"beam {tuple(beam_id.shape)}")
-    if nvecs.dtype != torch.float32:
-        raise NotImplementedError("only fp32 neighbour vectors are ported")
+    if nvecs.dtype not in _ENCODINGS:
+        raise TypeError(f"neighbour vectors must be float32|bfloat16, got "
+                        f"{nvecs.dtype}")
     lib = _lib()
     W = _build.next_pow2(ef + R)
     smem = lib.expand_merge_smem_bytes(W, d)
@@ -83,8 +90,10 @@ def fused_expand_merge(q: torch.Tensor, nvecs: torch.Tensor,
     oid, od, ock = torch.empty_like(bid), torch.empty_like(bd), torch.empty_like(bck)
     if B == 0 or ef == 0:
         return oid, od, ock
-    rc = lib.expand_merge(*(_build.ptr(t) for t in
-                            (qf, nv, ni, fr, bid, bd, bck, oid, od, ock)),
+    rc = lib.expand_merge(_build.ptr(qf), _build.ptr(nv),
+                          _ENCODINGS[nv.dtype],
+                          *(_build.ptr(t) for t in
+                            (ni, fr, bid, bd, bck, oid, od, ock)),
                           B, d, R, ef, n, W, _build.stream_of(qf))
     _build.check(lib, rc, "expand_merge launch")
     fused_expand_merge.launches += 1

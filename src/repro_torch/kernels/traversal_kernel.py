@@ -17,9 +17,14 @@ other.  Each counts its launches in ``<wrapper>.launches``.
 Bound and design (details in the source): bytes — the neighbour-id rows of
 the expanded candidates and the encoded vector rows of the fresh ones
 (``quant.encoded_row_bytes``), plus the beam and filter in and out, over
-3.35 TB/s.  One block per query keeps the
-beam, the packed filter and the merge buffers in shared memory, so only
-those gathers touch device memory; what remains per round is latency.
+3.35 TB/s.  One block per query keeps the beam, the packed filter and the
+merge buffers in shared memory, so only those gathers touch device memory;
+what remains per round is latency, which the round body cuts to two
+dependent gathers (the neighbour ids, then every candidate's row at once
+into a shared-memory tile, overlapped with the visited test) and three
+block barriers, and the filter moves in and out with 16-byte accesses.
+Where the tile of W·R rows would not fit, the kernel scores the fresh rows
+straight from device memory instead (one more dependent gather a round).
 
 Dropped TPU workarounds: one-hot-matmul gathers, the ``n < 2**24`` id cap,
 whole-table BlockSpecs, 128-lane visited padding and the BIG <-> +inf
@@ -50,7 +55,7 @@ def _lib():
     lib = _build.load("traversal")
     if lib.pilot_traversal.argtypes is None:
         lib.pilot_traversal_smem_bytes.restype = ctypes.c_size_t
-        lib.pilot_traversal_smem_bytes.argtypes = [ctypes.c_int] * 7
+        lib.pilot_traversal_smem_bytes.argtypes = [ctypes.c_int] * 9
         lib.pilot_traversal_smem_limit.restype = ctypes.c_size_t
         lib.pilot_traversal_smem_limit.argtypes = []
         lib.pilot_traversal.restype = ctypes.c_int
@@ -99,6 +104,18 @@ def encoding_operands(q: torch.Tensor, vec_table: torch.Tensor,
     return (ENCODINGS[_DENSE[vec_table.dtype]], q.contiguous(), scale, None, 0)
 
 
+# shared-memory bytes per (dq, ef, W, R, bits, scaled, lut width, encoding,
+# stored row width): one ctypes call per shape, not per launch
+_SMEM: dict = {}
+
+
+def _smem_bytes(lib, key) -> int:
+    smem = _SMEM.get(key)
+    if smem is None:
+        smem = _SMEM[key] = lib.pilot_traversal_smem_bytes(*key)
+    return smem
+
+
 def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
             n: int, *, width: int, visited_mode: str, rounds: int,
             want_fresh: bool, vec_scale=None, vec_codebook=None):
@@ -123,9 +140,10 @@ def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
                                                  vec_codebook)
     dq = qk.shape[1]
     lut_width = cb.shape[1] if cb is not None else 0
+    code = ENCODINGS.index(enc)
     lib = _lib()
-    smem = lib.pilot_traversal_smem_bytes(dq, ef, width, R, vbits,
-                                          int(scale is not None), lut_width)
+    smem = _smem_bytes(lib, (dq, ef, width, R, vbits, int(scale is not None),
+                             lut_width, code, vec_table.shape[1]))
     limit = lib.pilot_traversal_smem_limit()
     if smem > limit:
         raise ValueError(f"traversal state needs {smem} B of shared memory per "
@@ -141,15 +159,16 @@ def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
     od = torch.empty_like(bd)
     ock = torch.empty_like(bck)
     ovis = torch.empty_like(vis)
-    fresh = (torch.zeros((Bq, width * R), dtype=torch.bool, device=dev)
+    # the kernel writes both whole
+    fresh = (torch.empty((Bq, width * R), dtype=torch.bool, device=dev)
              if want_fresh else None)
     cnt = (None if want_fresh
-           else torch.zeros((Bq, 3), dtype=torch.int32, device=dev))
+           else torch.empty((Bq, 3), dtype=torch.int32, device=dev))
     if Bq == 0:
         return oid, od, ock, ovis, fresh, cnt
     rc = lib.pilot_traversal(
         _build.ptr(qk), _build.ptr(nbr_table), nbr_table.element_size(),
-        _build.ptr(vec_table), ENCODINGS.index(enc), vec_table.shape[1],
+        _build.ptr(vec_table), code, vec_table.shape[1],
         _build.ptr(scale), _build.ptr(cb), ksub, _build.ptr(bid), _build.ptr(bd),
         _build.ptr(bck), _build.ptr(vis), _build.ptr(oid), _build.ptr(od),
         _build.ptr(ock), _build.ptr(ovis), _build.ptr(fresh), _build.ptr(cnt),

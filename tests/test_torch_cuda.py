@@ -17,6 +17,7 @@ from repro_torch.core import quant as TQ
 from repro_torch.kernels import (build_kernel, fes_kernel, ops, ref as TR,
                                  topk_kernel, traversal_kernel)
 from repro_torch.kernels import flash_attention as k8
+from repro_torch.kernels.flash_attention import TENSOR_CORE_HEAD_DIMS
 
 
 @pytest.fixture
@@ -27,11 +28,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _hop_inputs(B_, R, ef, d, mode, seed, n=600, id_dtype=np.int16):
-    """Random regular digraph, random vectors, a sorted random beam with
-    sentinels, and the beam inserted into the visited filter."""
+def _hop_inputs(B_, R, ef, d, mode, seed, n=600, id_dtype=np.int16,
+                distinct=True):
+    """Random regular digraph (rows of distinct ids unless ``distinct`` is
+    false), random vectors, a sorted random beam with sentinels, and the
+    beam inserted into the visited filter."""
     rng = np.random.default_rng(seed)
-    nbr = np.stack([rng.choice(n, R, replace=False) for _ in range(n)])
+    nbr = (np.stack([rng.choice(n, R, replace=False) for _ in range(n)])
+           if distinct else rng.integers(0, n, (n, R)))
     nbr_t = np.concatenate([nbr, np.full((1, R), n)]).astype(id_dtype)
     x = rng.normal(size=(n, d)).astype(np.float32)
     vec_t = np.concatenate([x, np.zeros((1, d), np.float32)])
@@ -67,6 +71,64 @@ def test_traversal_kernels_match_plain(cuda, mode, W, id_dtype):
     want = TR.pilot_search_ref(*t, n, rounds=128, width=W, visited_mode=mode)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B_,R,ef,n,mode,W", [
+    (20, 16, 32, 601, "exact", 1),   # odd n: filter rows of n + 1 = 602
+    (20, 16, 32, 599, "exact", 3),   # bytes start off 16-byte boundaries
+    (264, 16, 32, 600, "bloom", 1),  # more queries than the card's 132 SMs
+    (24, 48, 64, 600, "bloom", 2),   # R 48: more ids than a warp's lanes
+    (24, 48, 64, 601, "exact", 4),
+])
+def test_traversal_kernels_edge_shapes_bit_equal(cuda, B_, R, ef, n, mode, W):
+    """K2 and K1 bit-equal to the plain version where the round body's
+    layout has edges: unaligned exact filter rows (packed and unpacked
+    with a scalar head and tail around 16-byte accesses), a grid larger
+    than the card, and frontiers of more than 32 ids."""
+    arrs, n = _hop_inputs(B_, R, ef, 48, mode, seed=B_ + R + n, n=n,
+                          id_dtype=np.int32)
+    t = [a.to(cuda) for a in arrs]
+    got = traversal_kernel.fused_traversal_hop(*t, n, width=W, visited_mode=mode)
+    want = TR.traversal_hop_ref(*t, n, width=W, visited_mode=mode)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    got = traversal_kernel.fused_pilot_search(*t, n, rounds=128, width=W,
+                                              visited_mode=mode)
+    want = TR.pilot_search_ref(*t, n, rounds=128, width=W, visited_mode=mode)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want[5].max()) > 1                  # several rounds ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,n,mode,W,tiled", [
+    (32, 3_000, "bloom", 1, True),       # 32 rows of 1,536 B in the tile
+    (32, 3_000, "bloom", 4, True),       # 128 rows: 192 KB of tile
+    (32, 250_000, "exact", 4, False),    # + a 31 KB exact filter: too much
+    (48, 3_000, "bloom", 4, False),      # 192 rows: over the limit alone
+])
+def test_traversal_kernels_wide_rows_bit_equal(cuda, R, n, mode, W, tiled):
+    """K2 and K1 at the pilot width of the 768-d presets (dp 384, fp32):
+    the round's rows go through the shared-memory tile where it fits, and
+    are read from device memory where it does not; both bit-equal."""
+    dp, ef = 384, 128
+    arrs, n = _hop_inputs(16, R, ef, dp, mode, seed=R + n + W, n=n,
+                          id_dtype=np.int32, distinct=False)
+    t = [a.to(cuda) for a in arrs]
+    smem = traversal_kernel._lib().pilot_traversal_smem_bytes(
+        dp, ef, W, R, t[6].shape[1], 0, 0, 0, dp)
+    assert (smem > W * R * 4 * dp) == tiled
+    got = traversal_kernel.fused_traversal_hop(*t, n, width=W, visited_mode=mode)
+    want = TR.traversal_hop_ref(*t, n, width=W, visited_mode=mode)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    got = traversal_kernel.fused_pilot_search(*t, n, rounds=128, width=W,
+                                              visited_mode=mode)
+    want = TR.pilot_search_ref(*t, n, rounds=128, width=W, visited_mode=mode)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want[5].max()) > 1                  # several rounds ran
 
 
 @pytest.mark.cuda
@@ -316,6 +378,32 @@ def test_expand_merge_kernel_bit_equal(cuda, B, R, ef, d, sentinel, p_fresh):
 
 
 @pytest.mark.cuda
+def test_expand_merge_kernel_bf16_vectors(cuda):
+    """bf16 neighbour vectors are widened in the kernel by their bits: the
+    result is bit-equal to the plain version on the same bf16 input; other
+    dtypes are refused."""
+    rng = np.random.default_rng(7)
+    B, R, ef, d, n = 64, 32, 128, 48, 5000
+    bd = np.sort(rng.random((B, ef)).astype(np.float32) * 50, axis=1)
+    bid = rng.integers(0, n, (B, ef)).astype(np.int32)
+    bid[:, -8:], bd[:, -8:] = n, np.inf
+    arrs = (rng.normal(size=(B, d)).astype(np.float32),
+            rng.normal(size=(B, R, d)).astype(np.float32),
+            rng.integers(0, n, (B, R)).astype(np.int32),
+            rng.random((B, R)) < 0.7, bid, bd, rng.random((B, ef)) > 0.5)
+    t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    t[1] = t[1].to(torch.bfloat16)
+    before = topk_kernel.fused_expand_merge.launches
+    got = topk_kernel.fused_expand_merge(*t, n)
+    assert topk_kernel.fused_expand_merge.launches == before + 1
+    for g, w in zip(got, TR.expand_merge_ref(*t, n)):
+        assert torch.equal(g, w)
+    t[1] = t[1].to(torch.float16)
+    with pytest.raises(TypeError, match="float32|bfloat16"):
+        topk_kernel.fused_expand_merge(*t, n)
+
+
+@pytest.mark.cuda
 def test_expand_merge_kernel_refuses_what_it_cannot_hold(cuda):
     """ef + R = 4,000 pads to 4,096 sort items, 64 KB per query: more than
     the limit the kernel exports."""
@@ -375,20 +463,25 @@ def _attn_inputs(B, Sq, Sk, H, Hkv, D, dtype, seed):
     (1, 300, 45, 6, 3, 64),
     (1, 1024, 1024, 8, 2, 128),   # D 128 at S 1024
     (2, 333, 517, 8, 4, 64),      # neither a multiple of a 128-row tile
+    (2, 100, 260, 4, 1, 16),      # the head dims of the fp32-core kernel
+    (1, 190, 70, 8, 2, 32),       # alone, bf16 included: GQA 4/1, Sq != Sk
+    (2, 130, 333, 8, 2, 96),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, Hkv, D,
                                               causal, dtype):
     """K8 against its plain version: 1e-4 in fp32 (the fp32-core kernel;
     summation order only), 3e-2 in bf16 (the reference's bar: the
     tensor-core kernel rounds P to bf16 before P·V, as the jnp model
-    reference does, where the plain version keeps it fp32).  bf16 goes
-    through the tensor-core kernel, fp32 does not."""
+    reference does, where the plain version keeps it fp32).  bf16 at D 64
+    or 128 goes through the tensor-core kernel; fp32, and bf16 at D 16, 32
+    and 96, through the fp32-core kernel."""
     q, k, v = (t.to(cuda) for t in _attn_inputs(B, Sq, Sk, H, Hkv, D,
                                                  dtype, seed=Sq + Sk + D))
     before, before_bf16 = k8.launches, k8.bf16_launches
     got = k8(q, k, v, causal=causal)
     assert k8.launches == before + 1
-    assert k8.bf16_launches == before_bf16 + (dtype == torch.bfloat16)
+    assert k8.bf16_launches == before_bf16 + (
+        dtype == torch.bfloat16 and D in TENSOR_CORE_HEAD_DIMS)
     want = TR.flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
@@ -411,7 +504,7 @@ def test_flash_attention_kernel_takes_unaligned_views(cuda):
 
 @pytest.mark.cuda
 def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
-    q, k, v = (t.to(cuda) for t in _attn_inputs(1, 8, 8, 4, 2, 96,
+    q, k, v = (t.to(cuda) for t in _attn_inputs(1, 8, 8, 4, 2, 80,
                                                  torch.float32, seed=0))
     with pytest.raises(ValueError, match="head dim"):
         k8(q, k, v)
@@ -427,9 +520,11 @@ def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
 
 @pytest.mark.cuda
 def test_model_and_rag_on_the_card(cuda):
-    """A small dense model (head dim 64, GQA 4/2) through forward, decode
-    and the RAG pipeline on the card, against the same weights on the
-    CPU: every layer's attention launches K8 once per forward."""
+    """The reduced dense model of the CPU tests (head dim 16, GQA 4/2)
+    through forward, decode and the RAG pipeline on the card, against the
+    same weights on the CPU: every layer's attention launches K8 once per
+    forward, on the fp32 cores (the tensor-core kernel takes D 64 and
+    128)."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduced
@@ -437,9 +532,9 @@ def test_model_and_rag_on_the_card(cuda):
     from repro_torch.models import decode_step, forward, init_caches, init_params
     from repro_torch.serving import RagPipeline
 
-    cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b"),
-                                      d_model=256), n_kv_heads=2)
-    assert cfg.head_dim == 64
+    cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b")),
+                              n_kv_heads=2)
+    assert cfg.head_dim == 16
     p_gpu = init_params(cfg, seed=0, device=cuda)
     p_cpu = init_params(cfg, seed=0, device="cpu")
     p_cpu.load_state_dict({k: v.cpu() for k, v in p_gpu.state_dict().items()})
@@ -447,7 +542,7 @@ def test_model_and_rag_on_the_card(cuda):
     before, before_bf16 = k8.launches, k8.bf16_launches
     hg, _ = forward(p_gpu, cfg, tok)
     assert k8.launches == before + cfg.n_layers
-    assert k8.bf16_launches == before_bf16 + cfg.n_layers
+    assert k8.bf16_launches == before_bf16
     hc, _ = forward(p_cpu, cfg, tok)
     rel = (hg.float().cpu() - hc.float()).abs().mean() / hc.float().abs().mean()
     assert float(rel) <= 2e-2
