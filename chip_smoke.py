@@ -25,13 +25,17 @@ Phases, one line each (any failed check exits non-zero):
                stage-① state, with fp32 and with bf16 neighbour vectors;
                K8 at the head dims of its fp32-core kernel alone, D 16, 32
                and 96), with times (CUDA events around the wrapper, median
-               of 20 after warm-up; K1, K2 and K6 also their device time from a
-               torch.profiler trace, and K1 the slowest query's rounds and
-               the device time per round) and bounds; then, for each quantized pilot dtype
-               (bf16, int8, int4, pq, encoded by ``set_pilot_dtype``), the
-               FES kernel of that entry encoding (K3 with a scale, K4, K5;
-               within 1e-4, same top-L ids) and K2/K1 on the index's own
-               encoded table from a real stage-① state (bit-equal).
+               of 20 after warm-up: for a kernel of a few µs that is mostly
+               the host's enqueue; K1-K6 also their device time from a
+               torch.profiler trace, K3 beside ``torch.cdist``'s, and K1 the
+               slowest query's rounds and the device time per round) and
+               bounds (the FES kernels' operations counted for the occupied
+               slots only: a zero slot row needs no products); then, for each
+               quantized pilot dtype (bf16, int8, int4, pq, encoded by
+               ``set_pilot_dtype``), the FES kernel of that entry encoding
+               (K3 with a scale, K4, K5; within 1e-4, same top-L ids) and
+               K2/K1 on the index's own encoded table from a real stage-①
+               state (bit-equal).
   4. search  — all queries, in batches, through ``PilotANNIndex.search``
                (persistent and per-hop stage ①) and ``search_baseline``:
                recall@10 against exact neighbours computed on the card, QPS,
@@ -91,6 +95,7 @@ T_START = time.perf_counter()
 
 QUANT = ("bfloat16", "int8", "int4", "pq")   # the quantized pilot dtypes
 TRAVERSAL = "pilot_traversal"                # K1/K2's kernel, in a trace
+FES_EVENT = "fes_"                           # K3-K5's kernels, in a trace
 # the FES kernel each entry encoding goes through, and the TPU kernel it
 # replaces
 FES_KERNEL = {"float32": "fes_distances", "bfloat16": "fes_distances",
@@ -138,26 +143,58 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, name: str, reps: int = 20):
+def device_ms(torch, fn, name: str, reps: int = 20, tries: int = 3):
     """Mean device time (ms) per call of ``fn()`` of the kernels whose name
     holds ``name``, from a torch.profiler trace of ``reps`` calls after one
-    warm call; None when the trace holds no such device event."""
+    warm call; a trace that holds no such device event (the profiler now
+    and then returns none) is taken again, up to ``tries`` times, and then
+    None."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and name in e.name]
-    return sum(us) / 1e3 / reps if us else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and name in e.name]
+        if us:
+            return sum(us) / 1e3 / reps
+    return None
+
+
+def fes_bound(r: int, QC: int, C: int, d: int, occ: int, row_b: int,
+              side_b: int, pq=None):
+    """(ms, "bytes" or "operations") of the least time one FES launch
+    could take: q (r, QC, d) fp32 and the (r, C) entry rows of ``row_b``
+    bytes plus ``side_b`` side bytes read once, the (r, QC, C) fp32 output
+    written once; operations over the fp32 peak for what these inputs need.
+    A zero query row needs no products (its row is the entries' own
+    norms), so only the ``occ`` occupied slots count: 2·d per (slot,
+    entry) and 2·d per entry for its norm (K3/K4); with ``pq = (m·ksub,
+    m)`` 2·d per table column for the occupied slots' tables and the one
+    the zero slots share, m adds per (occupied slot, entry) and m per
+    entry for the zero slots' row (K5)."""
+    nbytes = 4.0 * r * QC * d + r * C * row_b + side_b + 4.0 * r * QC * C
+    if pq is None:
+        ops = 2.0 * occ * C * d + 2.0 * r * C * d
+    else:
+        mk, m = pq
+        ops = 2.0 * (occ + 1) * mk * d + (occ + r) * C * m
+    t_ops, t_bytes = ops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
 
 
 def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def share(bound, ms) -> str:
+    return "not measured" if not ms else f"{bound / ms:.3f}"
 
 
 def per_round(ms, rounds: int) -> str:
@@ -729,21 +766,25 @@ def main() -> int:
     check(torch.allclose(got, want, rtol=1e-4, atol=1e-4 * d3),
           f"K3 fes_distances vs plain: max abs err {err3}")
     ms3 = time_ms(torch, lambda: fes_distances(qg, ev))
+    dev3 = device_ms(torch, lambda: fes_distances(qg, ev), FES_EVENT)
     plain3 = time_ms(torch, lambda: fes_distances_ref(qg, ev))
     lib3 = time_ms(torch, lambda: torch.cdist(qg, ev).square())
-    flops3 = 2.0 * r_ * QC * C * d3
-    bytes3 = 4.0 * (r_ * QC * d3 + r_ * C * d3 + r_ * QC * C)
-    bound3 = 1e3 * max(flops3 / FP32_FLOPS_PER_S, bytes3 / HBM_BYTES_PER_S)
-    by3 = "operations" if flops3 / FP32_FLOPS_PER_S > bytes3 / HBM_BYTES_PER_S else "bytes"
-    print(f"[kernels] K3 fes_distances (r={r_}, QC={QC}, C={C}, d={d3}) ok: "
-          f"max_abs_err {err3:.3g} (rtol 1e-4, atol 1e-4*d) | {ms3:.4f} ms "
-          f"vs plain {plain3:.4f} ms vs torch.cdist {lib3:.4f} ms | bound "
-          f"{bound3:.4f} ms ({by3})", flush=True)
+    libdev3 = device_ms(torch, lambda: torch.cdist(qg, ev).square(), "")
+    occ = int((qg != 0).any(-1).sum())      # slots that hold a query
+    bound3, by3 = fes_bound(r_, QC, C, d3, occ, 4 * d3, 0)
+    print(f"[kernels] K3 fes_distances (r={r_}, QC={QC}, C={C}, d={d3}, "
+          f"{occ} occupied slots) ok: max_abs_err {err3:.3g} (rtol 1e-4, "
+          f"atol 1e-4*d) | {ms3:.4f} ms (CUDA events around the wrapper; "
+          f"device time {fmt_ms(dev3)}) vs plain {plain3:.4f} ms vs "
+          f"torch.cdist {lib3:.4f} ms (device {fmt_ms(libdev3)}) | bound "
+          f"{bound3:.5f} ms ({by3}; {share(bound3, dev3)} of it)", flush=True)
     kernels.append(dict(name="fes_distances", route="cuda",
                         source="src/repro_torch/csrc/fes.cu",
                         replaces="src/repro/kernels/fes_kernel.py:157",
-                        max_abs_err=err3, ms=ms3, plain_ms=plain3,
-                        bound_ms=bound3, bound_by=by3, library_ms=lib3))
+                        max_abs_err=err3, ms=ms3, device_ms=dev3,
+                        plain_ms=plain3, bound_ms=bound3, bound_by=by3,
+                        bound_share=bound3 / dev3 if dev3 else None,
+                        library_ms=lib3, library_device_ms=libdev3))
 
     # the shared stage-① start state: FES entries -> init_state
     entry, _ = ops.fes_select(qp, A["fes_centroids"], ev, A["fes_entry_ids"],
@@ -923,28 +964,27 @@ def main() -> int:
         check(n_flip == 0, f"{fes_fn}[{dt}]: top-{fes_L} ids differ from the "
               f"plain version away from a near-tie on {n_flip} rows")
         msq = time_ms(torch, lambda: fes_distances(qg, evq, **fside))
+        devq = device_ms(torch, lambda: fes_distances(qg, evq, **fside),
+                         FES_EVENT)
         plainq = time_ms(torch, lambda: fes_distances_ref(qg, evq, **fside))
-        bytesq = (4.0 * r_ * QC * d3 + r_ * C * row_b + side_b
-                  + 4.0 * r_ * QC * C)
-        if dt == "pq":
-            mk = A["fes_entries_codebook"].shape[1]
-            opsq = 2.0 * r_ * QC * mk * d3 + r_ * QC * C * evq.shape[2]
-        else:
-            opsq = 2.0 * r_ * QC * C * d3
-        boundq = 1e3 * max(opsq / FP32_FLOPS_PER_S, bytesq / HBM_BYTES_PER_S)
-        byq = ("operations" if opsq / FP32_FLOPS_PER_S > bytesq / HBM_BYTES_PER_S
-               else "bytes")
+        cb = fside["codebook"]
+        boundq, byq = fes_bound(
+            r_, QC, C, d3, occ, row_b, side_b,
+            pq=None if cb is None else (cb.shape[1], evq.shape[2]))
         print(f"[kernels] {fes_fn} {dt} entries (r={r_}, QC={QC}, C={C}, "
               f"d={d3}, {row_b} B/row; encoded in {enc_s:.2f} s with the "
               f"primary rows) ok: max_abs_err {errq:.3g}, top-{fes_L} ids "
-              f"equal | {msq:.4f} ms vs plain {plainq:.4f} ms | bound "
-              f"{boundq:.4f} ms ({byq})", flush=True)
+              f"equal | {msq:.4f} ms (device {fmt_ms(devq)}) vs plain "
+              f"{plainq:.4f} ms | bound {boundq:.5f} ms ({byq}; "
+              f"{share(boundq, devq)} of it)", flush=True)
         kernels.append(dict(name=(f"{fes_fn}[{dt}]" if fes_fn == "fes_distances"
                                   else fes_fn), route="cuda",
                             source="src/repro_torch/csrc/fes.cu",
                             replaces=FES_REPLACES[fes_fn], path=f"search[{dt}]",
-                            max_abs_err=errq, ms=msq, plain_ms=plainq,
-                            bound_ms=boundq, bound_by=byq, library_ms=None))
+                            max_abs_err=errq, ms=msq, device_ms=devq,
+                            plain_ms=plainq, bound_ms=boundq, bound_by=byq,
+                            bound_share=boundq / devq if devq else None,
+                            library_ms=None))
 
         entry_q, _ = ops.fes_select(qp, A["fes_centroids"], evq,
                                     A["fes_entry_ids"], A["fes_valid"],

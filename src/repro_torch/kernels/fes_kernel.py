@@ -8,8 +8,9 @@ kernels, one wrapper and one launch counter each:
     ``fes_kernel.py:157``): entries fp32, bf16 or int8 with a per-dim
     scale; it hands int4 and pq entries to the two below;
   * ``fes_int4_distances`` — K4 ``_fes_int4_kernel`` (``:137``): entries
-    nibble-packed int4 with the scale (queries zero-padded and the scale
-    one-padded to 2·hp here, as in the reference);
+    nibble-packed int4 with the scale; the kernel reads the queries and
+    the scale at their own width d (the plain version pads them to 2·hp,
+    as the reference does);
   * ``fes_pq_distances`` — K5 ``_fes_pq_kernel`` (``:118``): pq codes with
     the codebook; the kernel builds each query's lookup table.
 
@@ -17,13 +18,16 @@ Each wrapper runs its kernel for CUDA tensors and ``kernels/ref.
 fes_distances_ref`` for CPU tensors, and counts its launches in
 ``<wrapper>.launches``.
 
-Bound and design (details in the source): at the main path's shape the
-bytes (dominated by the (r, QC, C) output) bound all three; the dense and
-int4 kernels have one block compute a 64 x 64 output tile over the whole of
-d, decoding entries while staging them through shared memory; the pq
-kernel builds 32 queries' tables per block and sums m table entries per
-output.  Plain fp32 — no TF32, which would break id parity of the top-L
-selection with the reference.
+Bound and design (details in the source): the bytes, dominated by the
+(r, QC, C) output, bound all three at the main path's shape, where 31 of
+every 32 slots are zero rows.  A zero row's outputs need no products (they
+are the entries' own norms, or the zero query's table summed), so the
+kernels compute them once per entry and do products only for the occupied
+slots; rows are staged with 16-byte ``cp.async`` and written with 16-byte
+stores.  The pq kernel builds each slot's table once per launch, walking
+the whole of C.  Plain fp32 in one fixed summation order (the contract
+in the source's header), which fixes every output bit; no TF32, which
+would break id parity of the top-L selection with the reference.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import fes_distances_ref, pad_query, pad_scale
+from repro_torch.kernels.ref import fes_distances_ref
 
 # kernel encoding codes (``Enc`` in csrc/fes.cu)
 ENCODINGS = ("float32", "bfloat16", "int8", "int4")
@@ -58,6 +62,18 @@ def _lib():
     return lib
 
 
+_PQ_SMEM: dict = {}
+
+
+def _pq_smem(lib, m: int, ksub: int):
+    """(shared memory one K5 block needs, the per-block limit), per
+    (m, ksub), asked of the library once."""
+    key = (m, ksub)
+    if key not in _PQ_SMEM:
+        _PQ_SMEM[key] = (lib.fes_pq_smem_bytes(m, ksub), lib.fes_smem_limit())
+    return _PQ_SMEM[key]
+
+
 def _check_operands(what: str, q_grouped, entries, *side) -> bool:
     """Shared checks; True when the operands lie on the CPU."""
     if _build.on_cpu(what, q_grouped, entries, *side):
@@ -70,6 +86,8 @@ def _check_operands(what: str, q_grouped, entries, *side) -> bool:
 
 
 def _tile_launch(q, entries, enc: int, scale, d: int) -> torch.Tensor:
+    """K3/K4 on q (r, QC, d); ``d`` is the queries' (and the scale's)
+    width: vw, or for int4 2·vw or 2·vw − 1."""
     r, QC, _ = q.shape
     C, vw = entries.shape[1], entries.shape[2]
     q = q.float().contiguous()
@@ -125,9 +143,8 @@ def fes_int4_distances(q_grouped: torch.Tensor, entries: torch.Tensor,
         raise ValueError(f"int4: entries (r, C, ceil(d/2)) int8 and scale "
                          f"({d},); got {tuple(entries.shape)} {entries.dtype}, "
                          f"{tuple(scale.shape)}")
-    q = pad_query(q_grouped, entries, scale)
-    s = pad_scale(scale, entries).contiguous()
-    out = _tile_launch(q, entries, ENCODINGS.index("int4"), s, width)
+    out = _tile_launch(q_grouped, entries, ENCODINGS.index("int4"),
+                       scale.float().contiguous(), d)
     fes_int4_distances.launches += int(out.numel() > 0)
     return out
 
@@ -147,7 +164,7 @@ def fes_pq_distances(q_grouped: torch.Tensor, entries: torch.Tensor,
                          f"{entries.dtype}, {tuple(codebook.shape)}")
     ksub = codebook.shape[1] // m
     lib = _lib()
-    smem, limit = lib.fes_pq_smem_bytes(m, ksub), lib.fes_smem_limit()
+    smem, limit = _pq_smem(lib, m, ksub)
     if smem > limit:
         raise ValueError(f"pq lookup tables need {smem} B of shared memory per "
                          f"block (> {limit}): m·ksub = {m * ksub} is too wide")

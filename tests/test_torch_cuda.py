@@ -233,6 +233,161 @@ def test_fes_select_on_card_matches_cpu(cuda):
     torch.testing.assert_close(d_g.cpu(), d_c, rtol=1e-4, atol=1e-3)
 
 
+def _topl_flips(got, want, L):
+    """Rows of two (r, QC, C) blocks whose top-L entry sets differ, leaving
+    out rows where ``want``'s L-th and (L+1)-th values are a near-tie."""
+    r, QC, C = want.shape
+    g, w = got.reshape(r * QC, C), want.reshape(r * QC, C)
+    gi = torch.sort(torch.topk(g, L, largest=False).indices, 1).values
+    wd, wi = torch.topk(w, L + 1, largest=False)
+    wi = torch.sort(wi[:, :L], 1).values
+    tie = (wd[:, L] - wd[:, L - 1]).abs() <= 1e-5 * wd[:, L].abs()
+    return int(((gi != wi).any(1) & ~tie).sum())
+
+
+def _grouped_batch(cuda, d, rows=None, seed=0, r=32, B=128):
+    """The main path's layout: B queries routed to r random centroids and
+    grouped with capacity B by ``ops.group_queries`` (r, B, d), so most
+    slots are zero rows.  ``rows`` replaces the first queries."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    for i, row in enumerate(rows or ()):
+        q[i] = row
+    cent = rng.normal(size=(r, d)).astype(np.float32)
+    qg, _ = ops.group_queries(torch.from_numpy(q).to(cuda),
+                              torch.from_numpy(cent).to(cuda), B)
+    return qg
+
+
+def _fes_check(qg, ev, scale, cb, counter, L=32):
+    """The wrapper against the plain version on the card: within 1e-4,
+    no top-L flips, one launch counted on ``counter``."""
+    d = qg.shape[2]
+    kw = dict(scale=scale, codebook=cb)
+    wrapper = getattr(fes_kernel, counter)
+    before = wrapper.launches
+    got = fes_kernel.fes_distances(qg, ev, **kw)
+    want = TR.fes_distances_ref(qg, ev, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * d)
+    assert _topl_flips(got, want, min(L, ev.shape[1] - 1)) == 0
+    return got, want
+
+
+FES_COUNTER = {"float32": "fes_distances", "bfloat16": "fes_distances",
+               "int8": "fes_distances", "int4": "fes_int4_distances",
+               "pq": "fes_pq_distances"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,C", [
+    ("float32", 48, 512), ("bfloat16", 48, 512), ("int8", 48, 512),
+    ("int4", 48, 512), ("pq", 48, 512),
+    ("float32", 47, 130), ("int4", 47, 130), ("pq", 47, 130)])
+def test_fes_kernels_on_the_main_path_layout(cuda, dtype, d, C):
+    """K3-K5 on a grouped batch of 128 queries over 32 clusters (most slots
+    zero rows), C 512 or 130 (not a multiple of 4: the 16-byte stores'
+    scalar tail), d 48 or 47 (int4 rows with a pad nibble, no padding in
+    the wrapper)."""
+    qg = _grouped_batch(cuda, d)
+    rng = np.random.default_rng(1)
+    ev, scale, cb = _encode(rng.normal(size=(32, C, d)).astype(np.float32),
+                            dtype)
+    _fes_check(qg, ev.to(cuda), None if scale is None else scale.to(cuda),
+               None if cb is None else cb.to(cuda), FES_COUNTER[dtype])
+    assert float((qg == 0).all(-1).float().mean()) > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4",
+                                   "pq"])
+def test_fes_kernels_zero_and_tiny_queries(cuda, dtype):
+    """A real query that is all zeros (its slot is a zero row), and one of
+    values around 1e-30: its squared norm underflows to 0 but the row is
+    not zero, so the kernels must do its products."""
+    d, C = 47, 130
+    tiny = np.full(d, 1e-30, np.float32)
+    tiny[::2] = -1e-30
+    qg = _grouped_batch(cuda, d, rows=[np.zeros(d, np.float32), tiny],
+                        seed=2)
+    rng = np.random.default_rng(3)
+    ev, scale, cb = _encode(rng.normal(size=(32, C, d)).astype(np.float32),
+                            dtype)
+    _fes_check(qg, ev.to(cuda), None if scale is None else scale.to(cuda),
+               None if cb is None else cb.to(cuda), FES_COUNTER[dtype])
+    tiny_rows = (qg.abs() == 1e-30).all(-1)
+    assert int(tiny_rows.sum()) == 1
+    assert float(qg[tiny_rows].square().sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("float32", 200), ("bfloat16", 130),
+                                     ("int8", 97), ("int4", 301),
+                                     ("pq", 200)])
+def test_fes_kernels_wide_rows(cuda, dtype, d):
+    """Rows wider than K3/K4 stage whole go through the kernel's ring of
+    d-chunks (every slot does its products there); K5's codebook too wide
+    to stage is read through the cache."""
+    qg = _grouped_batch(cuda, d, r=8, B=64, seed=6)
+    rng = np.random.default_rng(7)
+    ev, scale, cb = _encode(rng.normal(size=(8, 130, d)).astype(np.float32),
+                            dtype)
+    _fes_check(qg, ev.to(cuda), None if scale is None else scale.to(cuda),
+               None if cb is None else cb.to(cuda), FES_COUNTER[dtype])
+
+
+@pytest.mark.cuda
+def test_fes_int4_wrapper_launches_only_the_kernel(cuda):
+    """At odd d the int4 wrapper hands the kernel the queries and the
+    scale at their own width: no torch op runs on the card before K4."""
+    from torch.profiler import ProfilerActivity, profile
+    d = 47
+    qg = _grouped_batch(cuda, d)
+    rng = np.random.default_rng(4)
+    ev, scale, _ = _encode(rng.normal(size=(32, 512, d)).astype(np.float32),
+                           "int4")
+    ev, scale = ev.to(cuda), scale.to(cuda)
+    fes_kernel.fes_int4_distances(qg, ev, scale)                 # build
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fes_kernel.fes_int4_distances(qg, ev, scale)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "fes_tile_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,ksub,d", [(8, 16, 48), (16, 160, 32)])
+def test_fes_pq_kernel_table_widths(cuda, m, ksub, d):
+    """K5 at the main path's m·ksub 128 and at 2,560 columns, whose tables
+    come within a few KB of the 227 KB limit (the codebook, 328 KB, is
+    read through the cache)."""
+    smem, limit = fes_kernel._pq_smem(fes_kernel._lib(), m, ksub)
+    assert smem <= limit and (m * ksub < 1000 or smem > 0.95 * limit)
+    qg = _grouped_batch(cuda, d, r=8, B=64)
+    rng = np.random.default_rng(5)
+    # codes below 128: the plain version reads them as signed int8
+    codes = torch.from_numpy(rng.integers(0, min(ksub, 128), (8, 300, m))
+                             .astype(np.int8)).to(cuda)
+    cb = torch.from_numpy(rng.normal(size=(d, m * ksub)).astype(
+        np.float32)).to(cuda)
+    _fes_check(qg, codes, None, cb, "fes_pq_distances")
+
+
+@pytest.mark.cuda
+def test_fes_pq_kernel_refuses_tables_over_the_limit(cuda):
+    qg = torch.zeros((2, 16, 32), device=cuda)
+    codes = torch.zeros((2, 64, 16), dtype=torch.int8, device=cuda)
+    cb = torch.zeros((32, 16 * 256), device=cuda)
+    before = fes_kernel.fes_pq_distances.launches
+    with pytest.raises(ValueError, match="too wide"):
+        fes_kernel.fes_distances(qg, codes, codebook=cb)
+    assert fes_kernel.fes_pq_distances.launches == before
+
+
 def _merge_inputs(seed, B, K, P, n, ties):
     """Lists with sentinels, ids past n, cross-list duplicates at other
     distances; with ``ties``, few distance levels including -0.0 beside
