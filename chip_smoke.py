@@ -22,9 +22,11 @@ Phases, one line each (any failed check exits non-zero):
                card, at the shapes the main path gives it (K7 bit-equal at
                the build's three shapes on the index's vectors: the seeding
                merge, the first local-join round and a late round; K6 on a
-               stage-① state, with fp32 and with bf16 neighbour vectors;
-               K8 at the head dims of its fp32-core kernel alone, D 16, 32
-               and 96), with times (CUDA events around the wrapper, median
+               stage-① state, with fp32 and with bf16 neighbour vectors,
+               and on that state 64 times over (B 8,192, where bytes
+               decide);
+               K8 at the head dims of its fp32 (3xTF32) kernel alone, D 16,
+               32 and 96), with times (CUDA events around the wrapper, median
                of 20 after warm-up: for a kernel of a few µs that is mostly
                the host's enqueue; K1-K6 also their device time from a
                torch.profiler trace, K3 beside ``torch.cdist``'s, and K1 the
@@ -57,7 +59,10 @@ Phases, one line each (any failed check exits non-zero):
                tensor-core kernel at the path's shape (B 8, S 1024, causal)
                and at D 128, causal, Sq != Sk (3e-2; at the path's shape
                within 3x of SDPA), its fp32 kernel at D 128, non-causal,
-               Sq != Sk (1e-4), each with times beside
+               Sq != Sk (1e-4; also its profiler device time, both fp32
+               bounds: 3xTF32 at 495 TFLOP/s, the units it runs on, and the
+               fp32 cores at 67, and the kernels SDPA ran and SDPA's own
+               error), each with times beside
                F.scaled_dot_product_attention (measured only) and the bound;
                the full-width forward of 8 requests x 1024 tokens with K8
                and with the plain attention (hidden-state error, top-4
@@ -89,6 +94,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense on the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 dense on the tensor cores
 FULL_N = 1_000_000             # DEEP1M, the deployment this cell stands for
 T_START = time.perf_counter()
 
@@ -282,8 +288,22 @@ def profile_call(torch, name, fn) -> None:
               f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top), flush=True)
 
 
+def kernel_names(torch, fn) -> list:
+    """The names of the kernels one call of ``fn()`` runs on the card
+    (which backend a library call took)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:100] for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
 def k8_head_dim_cases(torch, dev, seed: int) -> list:
-    """K8 at the head dims only its fp32-core kernel is built for (16, 32,
+    """K8 at the head dims only its fp32 (3xTF32) kernel is built for (16, 32,
     96; the ``reduced()`` configs have D 16): fp32 within 1e-4 and bf16
     within 3e-2 of the plain version, causal and not, GQA 4/1, Sq != Sk.
     None of them launches the tensor-core kernel."""
@@ -311,7 +331,7 @@ def k8_head_dim_cases(torch, dev, seed: int) -> list:
                       f"K8 D {D} {dtype} causal={causal}: max abs err {err}")
                 rows.append(dict(shape=list(shape), dtype=str(dtype)[6:],
                                  causal=causal, max_abs_err=err, tol=tol))
-    print("[kernels] K8 flash_attention on the fp32 cores at D 16, 32, 96 "
+    print("[kernels] K8 flash_attention, fp32 (3xTF32) kernel at D 16, 32, 96 "
           "(B 2, Sq 300, Sk 520, H 16/4), fp32 and bf16, causal and not, "
           "ok: max abs err " + ", ".join(
               f"D {r['shape'][-1]} {r['dtype']}{' causal' * r['causal']} "
@@ -354,7 +374,7 @@ def rag_phase(torch, np, args, index, counts) -> list:
           f"rag: {n_par} parameters, expected {cfg.param_count() + n_norm}")
 
     # K8 against its plain version: bf16 (the tensor-core kernel) at the
-    # path's shape and at D 128, causal, Sq != Sk; fp32 (the fp32-core
+    # path's shape and at D 128, causal, Sq != Sk; fp32 (the 3xTF32
     # kernel) at D 128, non-causal, Sq != Sk; each timed beside its plain
     # version and SDPA, with its bound
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -385,8 +405,9 @@ def rag_phase(torch, np, args, index, counts) -> list:
         plain = time_ms(torch, lambda: flash_attention_ref(q, k, v,
                                                            causal=causal))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        lib = time_ms(torch, sdpa)
         # (q, k) pairs: row r sees min(r + 1, Sk) keys when causal (q and k
         # both start at 0); 2·D operations each for q·k and for p·v; bytes:
         # q, k, v read once, o written once
@@ -396,23 +417,51 @@ def rag_phase(torch, np, args, index, counts) -> list:
         flops = 4.0 * Bs * Hs * pairs * Ds
         nbytes = q.element_size() * (2 * Bs * Sq_ * Hs * Ds
                                      + 2 * Bs * Sk_ * Hk * Ds)
-        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
-        by = ("operations" if flops / peak > nbytes / HBM_BYTES_PER_S
+        # bf16 runs in bf16 on the tensor cores; fp32 in 3xTF32 on them:
+        # three times the work at the TF32 rate (beside it, the same work on
+        # the fp32 cores)
+        peak, work = ((BF16_FLOPS_PER_S, flops) if dtype == torch.bfloat16
+                      else (TF32_FLOPS_PER_S, 3 * flops))
+        by = ("operations" if work / peak > nbytes / HBM_BYTES_PER_S
               else "bytes")
-        bound = 1e3 * max(flops / peak, nbytes / HBM_BYTES_PER_S)
-        kernel = ("tensor-core" if dtype == torch.bfloat16 else "fp32-core")
+        bound = 1e3 * max(work / peak, nbytes / HBM_BYTES_PER_S)
+        row = dict(shape=list(shape), dtype=str(dtype)[6:], causal=causal,
+                   max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                   bound_by=by, library_ms=lib)
+        extra = ""
+        if dtype == torch.float32:
+            fn = lambda: flash_attention(q, k, v, causal=causal)
+            devk = device_ms(torch, fn, "flash_fwd")
+            want = flash_attention_ref(q, k, v, causal=causal).float()
+            lib_err = float((sdpa().transpose(1, 2).float() - want).abs().max())
+            lib_names = kernel_names(torch, sdpa)
+            fp32_cores = 1e3 * flops / FP32_FLOPS_PER_S
+            row.update(device_ms=devk, bound_fp32_cores_ms=fp32_cores,
+                       bound_share=bound / devk if devk else None,
+                       library_max_abs_err=lib_err,
+                       library_device_ms=device_ms(torch, sdpa, ""),
+                       library_kernels=lib_names)
+            del want
+            extra = (f" | device time {fmt_ms(devk)} | bounds: 3xTF32 "
+                     f"{bound:.4f} ms (3 x {flops / 1e9:.2f} GFLOP at "
+                     f"{TF32_FLOPS_PER_S / 1e12:g} TFLOP/s, the units it runs "
+                     f"on; {share(bound, devk)} of it), fp32 cores "
+                     f"{fp32_cores:.4f} ms ({flops / 1e9:.2f} GFLOP at "
+                     f"{FP32_FLOPS_PER_S / 1e12:g} TFLOP/s; "
+                     f"{share(fp32_cores, devk)} of it) | SDPA max abs err "
+                     f"vs plain {lib_err:.3g}, device "
+                     f"{fmt_ms(row['library_device_ms'])}, its kernels: "
+                     + "; ".join(n[:70] for n in lib_names))
+        kernel = "bf16" if dtype == torch.bfloat16 else "fp32 (3xTF32)"
         print(f"[rag] K8 {kernel} kernel (B, Sq, Sk, H, Hkv, D) = {shape}, "
               f"{str(dtype)[6:]}, causal={causal}: max_abs_err {err:.3g} "
               f"(atol/rtol {tol:g}) ok | {ms:.4f} ms vs plain {plain:.4f} ms "
               f"vs F.scaled_dot_product_attention {lib:.4f} ms ({ms / lib:.2f}x)"
-              f" | bound {bound:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP at "
+              f" | bound {bound:.4f} ms ({by}: {work / 1e9:.2f} GFLOP at "
               f"{peak / 1e12:g} TFLOP/s, {nbytes / 1e6:.1f} MB at "
-              f"{HBM_BYTES_PER_S / 1e12:g} TB/s; {bound / ms:.3f} of it)",
-              flush=True)
-        rows8.append(dict(shape=list(shape), dtype=str(dtype)[6:],
-                          causal=causal, max_abs_err=err, ms=ms,
-                          plain_ms=plain, bound_ms=bound, bound_by=by,
-                          library_ms=lib))
+              f"{HBM_BYTES_PER_S / 1e12:g} TB/s; {bound / ms:.3f} of it)"
+              + extra, flush=True)
+        rows8.append(row)
         del q, k, v, qt, kt, vt
     path8, d128, fp32 = rows8
     check(path8["ms"] <= 3.0 * path8["library_ms"],
@@ -570,8 +619,10 @@ def rag_phase(torch, np, args, index, counts) -> list:
                                           "bound_by", "library_ms")},
                  shapes=[path8, d128]),
             dict(k8, name="flash_attention", **{
-                k: fp32[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")},
+                k: fp32[k] for k in ("max_abs_err", "ms", "device_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "bound_share", "bound_fp32_cores_ms",
+                                     "library_ms", "library_max_abs_err")},
                  shapes=[fp32])]
 
 
@@ -869,11 +920,18 @@ def main() -> int:
     plain6 = time_ms(torch, lambda: expand_merge_ref(*k6_args))
     bytes6 = B * dp * 4 + B * R * (dp * 4 + 4 + 1) + 2 * beam_bytes
     bound6 = 1e3 * bytes6 / HBM_BYTES_PER_S
+    # the route the kernel should take, predicted from the inputs (the
+    # kernel does not report it): a rank merge where R <= 32 and every beam
+    # is sorted by (distance, id) with no NaN, else the block sort
+    bd6, bi6 = st.cand_d, st.cand_id
+    sorted6 = bool(((bd6[:, 1:] > bd6[:, :-1]) | ((bd6[:, 1:] == bd6[:, :-1])
+                    & (bi6[:, 1:] >= bi6[:, :-1]))).all())
+    route6 = "rank merge" if R <= 32 and sorted6 else "block sort"
     print(f"[kernels] K6 fused_expand_merge (B={B}, ef={ef}, R={R}, d={dp}, "
-          f"{int(k6_fresh.sum())} fresh) ok: ids, distances and flags "
-          f"bit-equal | {ms6:.4f} ms (dev {fmt_ms(dev6)}) vs plain "
-          f"{plain6:.4f} ms | bound "
-          f"{bound6:.5f} ms (bytes)", flush=True)
+          f"{int(k6_fresh.sum())} fresh; predicted route: {route6}) ok: ids, distances "
+          f"and flags bit-equal | {ms6:.4f} ms (dev {fmt_ms(dev6)}) vs plain "
+          f"{plain6:.4f} ms | bound {bound6:.5f} ms (bytes; "
+          f"{share(bound6, dev6)} of it)", flush=True)
     # the same call with bf16 neighbour vectors, widened in the kernel
     k6_bf16 = (k6_args[0], k6_args[1].to(torch.bfloat16), *k6_args[2:])
     got6 = fused_expand_merge(*k6_bf16)
@@ -884,16 +942,39 @@ def main() -> int:
     ms6b = time_ms(torch, lambda: fused_expand_merge(*k6_bf16))
     print(f"[kernels] K6 fused_expand_merge, bf16 neighbour vectors ok: ids, "
           f"distances and flags bit-equal | {ms6b:.4f} ms", flush=True)
+    # the same state 64 times over: B 8,192, where bytes decide (72 MB)
+    k6_wide = tuple(a.repeat(64, *([1] * (a.dim() - 1)))
+                    if isinstance(a, torch.Tensor) else a for a in k6_args)
+    got6 = fused_expand_merge(*k6_wide)
+    want6 = expand_merge_ref(*k6_wide)
+    torch.cuda.synchronize()
+    same_bits(torch, got6, want6, "K6 B 8192", ("ids", "distances", "checked"))
+    ms6w = time_ms(torch, lambda: fused_expand_merge(*k6_wide))
+    dev6w = device_ms(torch, lambda: fused_expand_merge(*k6_wide),
+                      "expand_merge")
+    Bw = k6_wide[0].shape[0]
+    bytes6w = Bw * dp * 4 + Bw * R * (dp * 4 + 4 + 1) + 2 * Bw * ef * 9
+    bound6w = 1e3 * bytes6w / HBM_BYTES_PER_S
+    print(f"[kernels] K6 fused_expand_merge at B={Bw} (the stage-① state 64 "
+          f"times) ok: ids, distances and flags bit-equal | {ms6w:.4f} ms "
+          f"(dev {fmt_ms(dev6w)}) | bound {bound6w:.5f} ms (bytes, "
+          f"{bytes6w / 1e6:.1f} MB; {share(bound6w, dev6w)} of it; at "
+          f"B={B} {share(bound6, dev6)})", flush=True)
     k8_dims = k8_head_dim_cases(torch, dev, args.seed)
     kernels.append(dict(name="fused_expand_merge", route="cuda",
                         source="src/repro_torch/csrc/topk.cu",
                         replaces="src/repro/kernels/topk_kernel.py:122",
                         max_abs_err=0.0, ms=ms6, plain_ms=plain6,
                         bound_ms=bound6, bound_by="bytes", library_ms=None,
-                        device_ms=dev6,
+                        device_ms=dev6, predicted_route=route6,
+                        bound_share=bound6 / dev6 if dev6 else None,
                         shapes=[dict(vectors="float32", ms=ms6),
-                                dict(vectors="bfloat16", ms=ms6b)]))
-    del got6, want6, k6_bf16
+                                dict(vectors="bfloat16", ms=ms6b),
+                                dict(B=Bw, vectors="float32", ms=ms6w,
+                                     device_ms=dev6w, bound_ms=bound6w,
+                                     bound_share=(bound6w / dev6w if dev6w
+                                                  else None))]))
+    del got6, want6, k6_bf16, k6_wide
 
     # K1: the whole pilot search from the FES start state
     spec = T.TraversalSpec(ef=ef)

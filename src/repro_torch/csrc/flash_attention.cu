@@ -13,8 +13,8 @@
 // whole-sequence K/V blocks in VMEM (K/V stream through shared memory one
 // tile at a time).  Layout: q (B, Sq, H, D), k/v (B, Sk, Hkv, D),
 // o (B, Sq, H, D), contiguous; D a template parameter.  Two kernels, chosen
-// by dtype and D: bf16 at D 64 or 128 on the tensor cores; fp32 at D 16,
-// 32, 64, 96 or 128, and bf16 at D 16, 32 or 96, on the fp32 cores:
+// by dtype and D, both on the tensor cores: bf16 at D 64 or 128 in bf16;
+// fp32 at D 16, 32, 64, 96 or 128, and bf16 at D 16, 32 or 96, in 3xTF32:
 //
 // bf16: flash_fwd_bf16_kernel, on the tensor cores.  One block per (b·h,
 // tile of 128 query rows), 288 threads: two consumer warpgroups of 64 rows
@@ -37,18 +37,27 @@
 // Query tiles are launched last-first, so the long causal rows start first
 // and the short ones fill in behind them over the 132 SMs.
 //
-// fp32: flash_fwd_fp32_kernel, on the fp32 cores (TF32 would not keep the
-// fp32 contract of 1e-4).  It also serves the head dims the tensor-core
-// kernel is not built for: bf16 inputs are widened to fp32 as they are read
-// and the output is rounded to bf16 once, at the store (the plain version's
-// arithmetic, in another summation order).  One block of 64 threads per (b·h, tile of 64
-// query rows); thread t owns query row q0 + t: its running max m, sum l and
-// fp32 accumulator acc[D] live in registers.  The q tile (scaled by D^-½)
-// is staged transposed in shared memory, qT[d][t], each K tile transposed,
-// kT[d][j] (a row of 68 words, so four consecutive keys are one 16-byte
-// broadcast load), each V tile as it is, vs[j][d].  A tile's keys are taken
-// 16 at a time: 16 scores in registers, one max and one rescale of acc per
-// 16 keys, then acc += p·V with 16-byte broadcast loads of V rows.
+// fp32: flash_fwd_fp32_kernel, 3xTF32 with mma.sync m16n8k8.  One TF32
+// product keeps about 11 bits of each operand, too few for the fp32
+// contract of 1e-4 against the plain version; so every operand of both
+// products is split as x = hi + lo (hi = x rounded to TF32 to nearest, ties
+// away from zero; lo = x - hi, which the tensor core truncates to TF32:
+// about 21 bits in all) and a·b is taken as a_lo·b_hi + a_hi·b_lo +
+// a_hi·b_hi into fp32 accumulators (a_lo·b_lo, about 2^-22 of a·b, is
+// dropped).  One block of 4 warps per (b·h, 64 query rows); a warp owns 16
+// rows: their q in registers (fp32, split at each use), their running max
+// m and partial sum l, and the 16 x D accumulator as D/8 m16n8 fragments.
+// K and V stream through a two-stage cp.async ring in 32-key tiles (keys
+// past Sk arrive as zeros; bf16 rows are widened on the way in).  Per tile
+// a warp runs S = q·kᵀ as D/8 x 4 three-term m16n8k8 products, scales by
+// D^-½ and masks, updates m and l (each row's four threads share the max
+// with two shuffles, as in the bf16 kernel), rescales the accumulator and
+// runs acc += P·V as 4 x D/8 three-term products: the S fragment's k index
+// is permuted so that it is already P·V's A operand (see the kernel).
+// bf16 inputs are exact in TF32, so their lo products are zero and skipped:
+// one term for q·kᵀ, two for P·V (P is fp32); the output is rounded to bf16
+// once, at the store.  Causal tiles past a warp's last row are skipped by
+// that warp.  The splits, not the products, take most of the issue slots.
 //
 // Bound: at the RAG path's shape (B 8, S 1024, H 32, Hkv 4, D 64, bf16,
 // causal) the work is 2·B·H·S·(S+1)·D ≈ 34.4 GFLOP against 75.5 MB of q, k,
@@ -59,7 +68,11 @@
 // interleave their softmax with each other's products.  What it leaves:
 // inside one warpgroup the softmax waits for its S product and the next
 // S product for the P·V one (no intra-warpgroup pipelining), and the output
-// is stored from registers.
+// is stored from registers.  fp32 at chip_smoke's shape (B 2, Sq 384,
+// Sk 640, H 16/4, D 128, non-causal): 4·B·H·Sq·Sk·D = 4.03 GFLOP, 0.060 ms
+// on the fp32 cores at 67 TFLOP/s; 3xTF32 triples the work, 0.024 ms at
+// 495 TFLOP/s TF32.  mma.sync, not wgmma: wgmma takes TF32 only K-major,
+// so V would have to be transposed while it is staged.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -71,150 +84,323 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
-// ---- fp32: the fp32-core kernel ------------------------------------------
+// ---- fp32: 3xTF32 on the tensor cores ------------------------------------
 
-constexpr int kRows = 64;         // query rows per block, one per thread
-constexpr int kTile = 64;         // keys per shared-memory tile
-constexpr int kChunk = 16;        // keys per online-softmax step
-constexpr int kKStride = kTile + 4;
+namespace f32 {
 
+constexpr int kWarps = 4;                // 16 query rows each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;       // query rows per block
+constexpr int kKeys = 32;                // keys per shared-memory tile
+constexpr int kStages = 2;               // K/V ring
+
+// one stage: K [kKeys][D + 8] then V [kKeys][D + 4], fp32.  The pads make
+// the fragment loads conflict-free: a K row of D + 8 words puts the eight
+// rows of a float2 load on distinct banks, a V row of D + 4 words those of
+// a scalar load.
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(D) * kRows + size_t(D) * kKStride +
-                          size_t(kTile) * D);
+struct Layout {
+  static constexpr int kKStride = D + 8;
+  static constexpr int kVStride = D + 4;
+  static constexpr int kStage = kKeys * (kKStride + kVStride);  // floats
+  static constexpr size_t kBytes = sizeof(float) * kStages * kStage;
+};
+
+// x = hi + lo: hi = x rounded to TF32 (10 mantissa bits) to nearest, ties
+// away from zero, its low 13 bits cleared; lo = x - hi, exact in fp32 and
+// at most half a TF32 ulp of x.  The tensor core reads a TF32 operand's top
+// 19 bits and ignores the rest, so lo enters the product truncated to TF32:
+// together about 21 bits of x.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+// d (16 x 8, fp32) += a (16 x 8, tf32, row) · b (8 x 8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
+// d += a·b with a = a_hi + a_lo and b = b_hi + b_lo: the two small products
+// first, a_lo·b_lo dropped.  lo_a / lo_b false: that operand's lo part is
+// zero (a bf16 value is exact in TF32) and its product is skipped.
+template <bool lo_a, bool lo_b>
+__device__ __forceinline__ void mma_3x(float* d, const uint32_t* ah,
+                                       const uint32_t* al, uint32_t bh0,
+                                       uint32_t bh1, uint32_t bl0,
+                                       uint32_t bl1) {
+  if (lo_a) mma_tf32(d, al, bh0, bh1);
+  if (lo_b) mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const uint32_t s = hopper::smem_u32(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// keys k0 .. k0 + kKeys - 1 of head hk into one stage; keys past Sk are
+// zeros (p is 0 there, and 0 · a finite V row is 0).  fp32 rows are copied
+// with 16-byte cp.async; bf16 rows are widened through registers.
+template <int D>
+__device__ __forceinline__ void load_tile(float* st, const float* k,
+                                          const float* v, size_t row0,
+                                          int hstride, int k0, int Sk) {
+  using L = Layout<D>;
+  for (int i = threadIdx.x; i < kKeys * (D / 4); i += kThreads) {
+    const int j = i / (D / 4), c = 4 * (i % (D / 4));
+    const bool ok = k0 + j < Sk;
+    const size_t off = (row0 + size_t(ok ? k0 + j : 0) * hstride) * D + c;
+    cp_async16(st + j * L::kKStride + c, k + off, ok);
+    cp_async16(st + kKeys * L::kKStride + j * L::kVStride + c, v + off, ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int D>
+__device__ __forceinline__ void load_tile(float* st, const __nv_bfloat16* k,
+                                          const __nv_bfloat16* v, size_t row0,
+                                          int hstride, int k0, int Sk) {
+  using L = Layout<D>;
+  for (int i = threadIdx.x; i < kKeys * (D / 4); i += kThreads) {
+    const int j = i / (D / 4), c = 4 * (i % (D / 4));
+    float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+    if (k0 + j < Sk) {
+      const size_t off = (row0 + size_t(k0 + j) * hstride) * D + c;
+      const float2 k01 = load2(k + off), k23 = load2(k + off + 2);
+      const float2 v01 = load2(v + off), v23 = load2(v + off + 2);
+      kx = make_float4(k01.x, k01.y, k23.x, k23.y);
+      vx = make_float4(v01.x, v01.y, v23.x, v23.y);
+    }
+    *reinterpret_cast<float4*>(st + j * L::kKStride + c) = kx;
+    *reinterpret_cast<float4*>(st + kKeys * L::kKStride + j * L::kVStride +
+                               c) = vx;
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");  // an empty group
+}
+
+// One block per (b·h, 64 query rows); warp w owns rows r0 .. r0 + 15,
+// r0 = q0 + 16w.  In an m16n8k8 fragment this thread (g = lane / 4, t =
+// lane % 4) holds rows g and g + 8; its columns are permuted so that its
+// two values of a row are neighbours: the k index t of a step is dim (or
+// key) 2t of it and t + 4 is 2t + 1.  So q·kᵀ reads q and K as float2
+// pairs, and the S accumulator's entries (cols 2t, 2t + 1 of rows g, g + 8)
+// are already P·V's A operand, with V's rows 2t and 2t + 1 as its B.
 template <int D, typename T>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kThreads)
     flash_fwd_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, T* __restrict__ o, int Sq,
                           int Sk, int H, int Hkv, int causal, float scale) {
+  using L = Layout<D>;
+  constexpr bool kLo = sizeof(T) == 4;  // bf16 q, k and v are exact in TF32
   extern __shared__ __align__(16) float smem[];
-  float* qT = smem;                       // [D][kRows]
-  float* kT = qT + D * kRows;             // [D][kKStride]
-  float* vs = kT + D * kKStride;          // [kTile][D]
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
   const int q0 = blockIdx.y * kRows;
-  const int t = threadIdx.x;
-  const int qpos = q0 + t;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 16 * warp;
+  const int rows[2] = {r0 + g, r0 + g + 8};
 
-  for (int i = t; i < kRows * D; i += kRows) {
-    const int r = i / D, d = i % D;
-    float x = 0.f;
-    if (q0 + r < Sq)
-      x = widen(q[((size_t(b) * Sq + q0 + r) * H + h) * D + d]) * scale;
-    qT[d * kRows + r] = x;
+  // q rows g and g + 8, dims 8kk + 2t and 8kk + 2t + 1, in registers for
+  // the whole key loop (rows past Sq read as zeros and are not stored)
+  float qr[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const T* qrow = q + ((size_t(b) * Sq + rows[i]) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float2 x = rows[i] < Sq ? load2(qrow + 8 * kk) : make_float2(0.f, 0.f);
+      qr[kk][i] = x.x;      // a0 / a1: (row g / g + 8, dim 8kk + 2t)
+      qr[kk][2 + i] = x.y;  // a2 / a3: (row g / g + 8, dim 8kk + 2t + 1)
+    }
   }
 
-  float m = kNegInf, l = 0.f;
-  float acc[D];
+  float acc[D / 8][4];  // o: dims 8n + 2t + {0, 1} of rows g (0, 1), g + 8 (2, 3)
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-  // causal: key tiles past the block's last query row contribute nothing
+  // causal: key tiles past the block's last row contribute nothing, and
+  // past the warp's last row nothing to this warp; nor any to a warp whose
+  // rows all lie past Sq
   const int k_end = causal ? min(Sk, q0 + kRows) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous tile has been read (and qT written)
-    for (int i = t; i < kTile * D; i += kRows) {
-      const int j = i / D, d = i % D;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + j < Sk) {
-        const size_t off = ((size_t(b) * Sk + k0 + j) * Hkv + hk) * D + d;
-        kx = widen(k[off]);
-        vx = widen(v[off]);
-      }
-      kT[d * kKStride + j] = kx;
-      vs[j * D + d] = vx;
-    }
-    __syncthreads();
+  const int warp_end = r0 >= Sq ? 0 : causal ? min(k_end, r0 + 16) : k_end;
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
+  const size_t kv_row0 = size_t(b) * Sk * Hkv + hk;
 
-    const int n_keys = min(kTile, Sk - k0);
-    for (int c = 0; c < n_keys; c += kChunk) {
-      float s[kChunk];
+  if (n_tiles > 0) load_tile<D>(smem, k, v, kv_row0, Hkv, 0, Sk);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kKeys;
+    if (j + 1 < n_tiles)
+      load_tile<D>(smem + ((j + 1) % kStages) * L::kStage, k, v,
+                             kv_row0, Hkv, k0 + kKeys, Sk);
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();  // tile j has landed for every thread
+
+    if (k0 < warp_end) {
+      const float* ks = smem + (j % kStages) * L::kStage;
+      const float* vs = ks + kKeys * L::kKStride;
+
+      // S = q·kᵀ (16 x kKeys per warp), fp32 accumulators
+      float sc[kKeys / 8][4];
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) s[jj] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        const float qd = qT[d * kRows + t];
-        const float4* kr =
-            reinterpret_cast<const float4*>(&kT[d * kKStride + c]);
+      for (int n = 0; n < kKeys / 8; ++n)
 #pragma unroll
-        for (int u = 0; u < kChunk / 4; ++u) {
-          const float4 kk = kr[u];
-          s[4 * u + 0] += qd * kk.x;
-          s[4 * u + 1] += qd * kk.y;
-          s[4 * u + 2] += qd * kk.z;
-          s[4 * u + 3] += qd * kk.w;
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (kLo) split(qr[kk][e], ah[e], al[e]);
+          else ah[e] = __float_as_uint(qr[kk][e]);
+        }
+#pragma unroll
+        for (int n = 0; n < kKeys / 8; ++n) {
+          const float2 kx = load2(ks + (8 * n + g) * L::kKStride + 8 * kk + 2 * t);
+          uint32_t bh0, bh1, bl0 = 0, bl1 = 0;
+          if (kLo) {
+            split(kx.x, bh0, bl0);
+            split(kx.y, bh1, bl1);
+          } else {
+            bh0 = __float_as_uint(kx.x);
+            bh1 = __float_as_uint(kx.y);
+          }
+          mma_3x<kLo, kLo>(sc[n], ah, al, bh0, bh1, bl0, bl1);
         }
       }
-      float cm = kNegInf;
+
+      // scale; mask keys past Sk and, causal, above the diagonal
+      const bool masked = k0 + kKeys > Sk || (causal && k0 + kKeys - 1 > r0);
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const int kp = k0 + c + jj;
-        if (kp >= Sk || (causal && kp > qpos)) s[jj] = kNegInf;
-        cm = fmaxf(cm, s[jj]);
-      }
-      const float m_new = fmaxf(m, cm);
-      const float corr = expf(m - m_new);
-      float ps = 0.f;
+      for (int n = 0; n < kKeys / 8; ++n)
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        s[jj] = expf(s[jj] - m_new);
-        ps += s[jj];
-      }
-      l = l * corr + ps;
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[n][e] * scale;
+          if (masked) {
+            const int col = k0 + 8 * n + 2 * t + (e & 1);
+            if (col >= Sk || (causal && col > rows[e >> 1])) x = kNegInf;
+          }
+          sc[n][e] = x;
+        }
+
+      // online softmax, fp32: m shared by the row's four threads, l partial
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
+      for (int i = 0; i < 2; ++i) {
+        float mx = m[i];
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float4* vr = reinterpret_cast<const float4*>(&vs[(c + jj) * D]);
+        for (int n = 0; n < kKeys / 8; ++n)
+          mx = fmaxf(mx, fmaxf(sc[n][2 * i], sc[n][2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float corr = expf(m[i] - mx);
+        m[i] = mx;
+        float sum = 0.f;
 #pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 vv = vr[d4];
-          acc[4 * d4 + 0] += s[jj] * vv.x;
-          acc[4 * d4 + 1] += s[jj] * vv.y;
-          acc[4 * d4 + 2] += s[jj] * vv.z;
-          acc[4 * d4 + 3] += s[jj] * vv.w;
+        for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = expf(sc[n][2 * i + e] - mx);
+            sc[n][2 * i + e] = p;
+            sum += p;
+          }
+        l[i] = l[i] * corr + sum;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[n][2 * i] *= corr;
+          acc[n][2 * i + 1] *= corr;
         }
       }
-      m = m_new;
+
+      // acc += P·V: S's n-tile j is the A operand of key step j
+#pragma unroll
+      for (int kj = 0; kj < kKeys / 8; ++kj) {
+        uint32_t ph[4], pl[4];
+        split(sc[kj][0], ph[0], pl[0]);  // (row g, key 2t)
+        split(sc[kj][2], ph[1], pl[1]);  // (row g + 8, key 2t)
+        split(sc[kj][1], ph[2], pl[2]);  // (row g, key 2t + 1)
+        split(sc[kj][3], ph[3], pl[3]);  // (row g + 8, key 2t + 1)
+        const float* v0 = vs + (8 * kj + 2 * t) * L::kVStride + g;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          const float x0 = v0[8 * n], x1 = v0[L::kVStride + 8 * n];
+          uint32_t bh0, bh1, bl0 = 0, bl1 = 0;
+          if (kLo) {
+            split(x0, bh0, bl0);
+            split(x1, bh1, bl1);
+          } else {
+            bh0 = __float_as_uint(x0);
+            bh1 = __float_as_uint(x1);
+          }
+          mma_3x<true, kLo>(acc[n], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
     }
+    __syncthreads();  // every warp is done with tile j's stage
   }
 
-  if (qpos < Sq) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* out = o + ((size_t(b) * Sq + qpos) * H + h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) store(out + d, acc[d] * inv);
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    if (rows[i] < Sq) {
+      T* out = o + ((size_t(b) * Sq + rows[i]) * H + h) * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        store2(out + 8 * n, acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    }
   }
 }
 
 template <int D, typename T>
-int launch_fp32(const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Sk, int H, int Hkv, int causal, float scale,
-                cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Sk, int H, int Hkv, int causal, float scale,
+           cudaStream_t stream) {
+  constexpr size_t smem = Layout<D>::kBytes;
   auto kern = flash_fwd_fp32_kernel<D, T>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-  kern<<<grid, kRows, smem, stream>>>(
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, Hkv, causal,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace f32
 
 // ---- bf16: the tensor-core kernel ----------------------------------------
 
@@ -511,16 +697,17 @@ const char* repro_cuda_error_string(int code) {
 }
 
 // o <- attention(q, k, v); dtype 0 = fp32, 1 = bf16.  bf16 at D 64 or 128
-// runs on the tensor cores; fp32 at D 16, 32, 64, 96 or 128 and bf16 at D
-// 16, 32 or 96 on the fp32 cores.  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for another dtype or D (the wrapper
-// refuses them first) or a tensor map that cuTensorMapEncodeTiled refused.
+// runs in bf16 on the tensor cores; fp32 at D 16, 32, 64, 96 or 128 and bf16
+// at D 16, 32 or 96 in 3xTF32 (flash_fwd_fp32_kernel).  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for another
+// dtype or D (the wrapper refuses them first) or a tensor map that
+// cuTensorMapEncodeTiled refused.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int dtype, int B, int Sq, int Sk, int H, int Hkv,
                         int D, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FP32_CORES(DD, T) \
-  launch_fp32<DD, T>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, scale, s)
+  f32::launch<DD, T>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, scale, s)
   if (dtype == 0) {
     switch (D) {
       case 16: return FP32_CORES(16, float);

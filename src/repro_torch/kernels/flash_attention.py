@@ -20,11 +20,15 @@ on the tensor cores: per (b·h, 128 query rows) two warpgroups keep q in
 shared memory, K/V tiles of 128 keys stream through a two-stage TMA ring,
 and S = q·kᵀ and P·V are wgmma products with an fp32 online softmax
 between them (P rounded to bf16 as the A operand of P·V, as the jnp model
-reference rounds it).  fp32 runs on the fp32 cores, one thread per query
-row, K/V tiles of 64 keys in shared memory (TF32 would not keep 1e-4); so
-does bf16 at the head dims the tensor-core kernel is not built for (16, 32,
-96: the ``reduced()`` configs' D 16 among them), widened to fp32 as it is
-read and rounded to bf16 once, at the store.
+reference rounds it).  fp32 also runs on the tensor cores, in 3xTF32: every
+operand of both products is split into two TF32 parts, hi + lo, and a·b
+is a_lo·b_hi + a_hi·b_lo + a_hi·b_hi (``mma.sync`` m16n8k8, fp32
+accumulators), which keeps 1e-4 where one TF32 product does not; a block
+of 4 warps owns 64 query rows and K/V tiles of 32 keys stream through a
+two-stage ``cp.async`` ring.  So does bf16 at the head dims the bf16 kernel
+is not built for (16, 32, 96: the ``reduced()`` configs' D 16 among them),
+whose operands are exact in TF32 (their lo products are skipped), rounded
+to bf16 once, at the store.
 """
 
 from __future__ import annotations

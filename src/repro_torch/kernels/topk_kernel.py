@@ -15,8 +15,12 @@ expand_merge_ref`` for CPU tensors; it counts its launches in
 Bound and design (details in the source): bytes, dominated by the
 (B, R, d) neighbour rows.  One block per query: one warp per candidate
 sums in ``ref.lane_dot``'s order, so kernel and plain version give the
-same bits; the ef + R items are sorted by (distance, id, position) in
-shared memory and the first ef written out.
+same bits, every row's loads in flight before any sum.  Where R <= 32 and
+the beam is sorted by (distance, id), as the reference's contract has it,
+one warp sorts the candidates in registers and every item is written
+straight to its rank in the merged list (binary searches of the two sorted
+lists); otherwise the ef + R items are sorted by (distance, id, position)
+in shared memory and the first ef written out.
 """
 
 from __future__ import annotations

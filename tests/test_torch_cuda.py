@@ -558,6 +558,87 @@ def test_expand_merge_kernel_bf16_vectors(cuda):
         topk_kernel.fused_expand_merge(*t, n)
 
 
+def _k6_case(B, R, ef, d, seed, integer=False, n=5000):
+    """A sorted beam by (distance, id) with its last quarter sentinels
+    (BIG, id n); ``integer``: small-integer vectors and distances and ids
+    from a small range, so (distance, id) ties are everywhere."""
+    rng = np.random.default_rng(seed)
+    if integer:
+        n = 40
+        draw = lambda s: rng.integers(-2, 3, s).astype(np.float32)
+        bd = rng.integers(0, 3 * d, (B, ef)).astype(np.float32)
+    else:
+        draw = lambda s: rng.normal(size=s).astype(np.float32)
+        bd = rng.random((B, ef)).astype(np.float32) * 50
+    bid = rng.integers(0, n, (B, ef)).astype(np.int32)
+    o = np.lexsort((bid, bd), axis=1)
+    bd, bid = np.take_along_axis(bd, o, 1), np.take_along_axis(bid, o, 1)
+    s = ef - ef // 4
+    bid[:, s:], bd[:, s:] = n, np.float32(3.0e38)
+    return [draw((B, d)), draw((B, R, d)),
+            rng.integers(0, n, (B, R)).astype(np.int32),
+            rng.random((B, R)) < 0.6, bid, bd, rng.random((B, ef)) > 0.5], n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B,R,ef,d,vectors", [
+    ("unsorted beam", 64, 32, 128, 48, "float32"),
+    ("unsorted beam", 64, 5, 32, 24, "bfloat16"),
+    ("R 5", 64, 5, 128, 48, "float32"),
+    ("R 48", 64, 48, 128, 48, "float32"),
+    ("ef 16", 64, 32, 16, 48, "float32"),
+    ("ef + R not a power of two", 64, 5, 20, 48, "bfloat16"),
+    ("-0.0 in the beam", 64, 32, 64, 16, "float32"),
+    ("integer ties", 64, 32, 128, 24, "float32"),
+    ("integer ties", 64, 32, 48, 24, "bfloat16"),
+    ("B 8192", 8192, 32, 128, 48, "float32"),
+    ("B 8192", 8192, 32, 128, 48, "bfloat16"),
+    ("NaN in the beam", 64, 2, 16, 24, "float32"),
+    ("NaN in the beam", 64, 32, 128, 48, "bfloat16"),
+    ("NaN in a beam of one", 64, 2, 1, 24, "float32"),
+])
+def test_expand_merge_kernel_routes_bit_equal(cuda, case, B, R, ef, d,
+                                              vectors):
+    """Bit-equal (ids, distance bits, flags) to the plain version on both of
+    the kernel's routes: the warp sort and rank merge (R <= 32, a beam
+    sorted by (distance, id)) and the block sort (R > 32, or a beam out of
+    order, or holding a NaN); with ef < R, ef + R not a power of two, -0.0
+    beside +0.0 and rows at distance exactly 0, ties in (distance, id)
+    everywhere, a NaN beam distance (after every number, +inf included; at
+    R 2 the NaN items reach the output; also in a beam of one), and at a
+    batch where bytes decide."""
+    arrs, n = _k6_case(B, R, ef, d, seed=B + R + ef + d,
+                       integer=case in ("integer ties", "-0.0 in the beam"))
+    q, nv, nid, fresh, bid, bd, bck = arrs
+    if case == "unsorted beam":
+        perm = np.random.default_rng(1).permuted(
+            np.tile(np.arange(ef), (B, 1)), axis=1)
+        bid, bd = np.take_along_axis(bid, perm, 1), np.take_along_axis(bd, perm, 1)
+    if case == "-0.0 in the beam":
+        nv[:, :6], fresh[:, :6] = q[:, None, :], True       # distance 0
+        bd[:, :6] = np.array([-0.0, 0.0, -0.0, 0.0, 0.0, -0.0], np.float32)
+        bid[:, :6] = np.array([1, 3, 3, 7, 9, 12], np.int32)
+        bd[:, 6:] = np.maximum(bd[:, 6:], 1.0)
+        o = np.lexsort((bid, bd), axis=1)
+        bid, bd = np.take_along_axis(bid, o, 1), np.take_along_axis(bd, o, 1)
+    if case == "NaN in the beam":
+        bd[:, 3], bd[:, 5], bd[:, 9] = np.nan, np.nan, -np.float32(np.nan)
+        bd[::2, -2:] = np.inf
+        bid[:, 5] = 0
+    if case == "NaN in a beam of one":
+        bd[:, 0] = np.nan
+    t = [torch.from_numpy(a).to(cuda) for a in (q, nv, nid, fresh, bid, bd, bck)]
+    t[1] = t[1].to(getattr(torch, vectors))
+    before = topk_kernel.fused_expand_merge.launches
+    got = topk_kernel.fused_expand_merge(*t, n)
+    assert topk_kernel.fused_expand_merge.launches == before + 1
+    want = TR.expand_merge_ref(*t, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    assert torch.equal(got[2], want[2])
+
+
 @pytest.mark.cuda
 def test_expand_merge_kernel_refuses_what_it_cannot_hold(cuda):
     """ef + R = 4,000 pads to 4,096 sort items, 64 KB per query: more than
@@ -618,18 +699,18 @@ def _attn_inputs(B, Sq, Sk, H, Hkv, D, dtype, seed):
     (1, 300, 45, 6, 3, 64),
     (1, 1024, 1024, 8, 2, 128),   # D 128 at S 1024
     (2, 333, 517, 8, 4, 64),      # neither a multiple of a 128-row tile
-    (2, 100, 260, 4, 1, 16),      # the head dims of the fp32-core kernel
+    (2, 100, 260, 4, 1, 16),      # the head dims of the fp32 kernel
     (1, 190, 70, 8, 2, 32),       # alone, bf16 included: GQA 4/1, Sq != Sk
     (2, 130, 333, 8, 2, 96),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, Hkv, D,
                                               causal, dtype):
-    """K8 against its plain version: 1e-4 in fp32 (the fp32-core kernel;
-    summation order only), 3e-2 in bf16 (the reference's bar: the
+    """K8 against its plain version: 1e-4 in fp32 (the fp32 kernel: 3xTF32
+    products, about 22 bits of each operand), 3e-2 in bf16 (the reference's bar: the
     tensor-core kernel rounds P to bf16 before P·V, as the jnp model
     reference does, where the plain version keeps it fp32).  bf16 at D 64
     or 128 goes through the tensor-core kernel; fp32, and bf16 at D 16, 32
-    and 96, through the fp32-core kernel."""
+    and 96, through the fp32 kernel."""
     q, k, v = (t.to(cuda) for t in _attn_inputs(B, Sq, Sk, H, Hkv, D,
                                                  dtype, seed=Sq + Sk + D))
     before, before_bf16 = k8.launches, k8.bf16_launches
@@ -637,6 +718,40 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, Hkv, D,
     assert k8.launches == before + 1
     assert k8.bf16_launches == before_bf16 + (
         dtype == torch.bfloat16 and D in TENSOR_CORE_HEAD_DIMS)
+    want = TR.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+_K8_EDGES = [  # (tag, B, Sq, Sk, H, Hkv, q x)
+    ("peaked", 2, 200, 300, 8, 2, 8.0),
+    ("Sq 1", 1, 1, 77, 4, 2, 1.0),
+    ("Sq 17", 2, 17, 130, 4, 1, 1.0),
+    ("Sk 1", 1, 40, 1, 4, 4, 8.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("edge", [e[0] for e in _K8_EDGES])
+@pytest.mark.parametrize("dtype,D", [
+    (torch.float32, 16), (torch.float32, 64), (torch.float32, 128),
+    (torch.bfloat16, 16), (torch.bfloat16, 32), (torch.bfloat16, 96)])
+def test_flash_attention_fp32_kernel_edges(cuda, dtype, D, edge, causal):
+    """The fp32 kernel (3xTF32) within 1e-4 of the plain version in fp32,
+    with peaked scores (q x 8) and at one query row, 17 rows (one partial
+    warp tile) and one key; bf16 at the head dims it serves within 3e-2.
+    None of them launches the bf16 tensor-core kernel."""
+    _, B, Sq, Sk, H, Hkv, qx = next(e for e in _K8_EDGES if e[0] == edge)
+    q, k, v = _attn_inputs(B, Sq, Sk, H, Hkv, D, torch.float32,
+                           seed=Sq + Sk + D)
+    q, k, v = ((q * qx).to(dtype).to(cuda), k.to(dtype).to(cuda),
+               v.to(dtype).to(cuda))
+    before, before_bf16 = k8.launches, k8.bf16_launches
+    got = k8(q, k, v, causal=causal)
+    assert k8.launches == before + 1 and k8.bf16_launches == before_bf16
     want = TR.flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
@@ -678,7 +793,7 @@ def test_model_and_rag_on_the_card(cuda):
     """The reduced dense model of the CPU tests (head dim 16, GQA 4/2)
     through forward, decode and the RAG pipeline on the card, against the
     same weights on the CPU: every layer's attention launches K8 once per
-    forward, on the fp32 cores (the tensor-core kernel takes D 64 and
+    forward, in the fp32 kernel (the bf16 kernel takes D 64 and
     128)."""
     import dataclasses
 
