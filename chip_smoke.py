@@ -29,7 +29,12 @@ Phases, one line each (any failed check exits non-zero):
                32 and 96), with times (CUDA events around the wrapper, median
                of 20 after warm-up: for a kernel of a few µs that is mostly
                the host's enqueue; K1-K6 also their device time from a
-               torch.profiler trace, K3 beside ``torch.cdist``'s, and K1 the
+               torch.profiler trace — led by 5 uncounted calls (the
+               profiler can lose a trace's first events), retaken while it
+               holds fewer events than the measured calls launch, and every
+               reading printed before phase 4 beside a plain trace's, the
+               yardstick before PR 19 — K3 beside ``torch.cdist``'s, and
+               K1 the
                slowest query's rounds and the device time per round) and
                bounds (the FES kernels' operations counted for the occupied
                slots only: a zero slot row needs no products); then, for each
@@ -39,12 +44,23 @@ Phases, one line each (any failed check exits non-zero):
                K2/K1 on the index's own encoded table from a real stage-①
                state (bit-equal).
   4. search  — all queries, in batches, through ``PilotANNIndex.search``
-               (persistent and per-hop stage ①) and ``search_baseline``:
-               recall@10 against exact neighbours computed on the card, QPS,
-               mean stats, and each path's own launch counts (set to 0 just
-               before it), held against the pattern that path must give.
+               (persistent and per-hop stage ①) and ``search_baseline``,
+               each replaying the CUDA graphs ``warmup`` captured for its
+               bucket: recall@10 against exact neighbours computed on the
+               card, QPS, mean stats, rounds per batch and rounds the
+               graphs' chunks ran, host tests, and each path's own launch
+               counts (set to 0 just before it), held against the pattern
+               that path must give; then each path against the eager
+               program on the same padded bucket (ids, distance bits, every
+               stats key equal, at the batch and at B 1, 13, 100), with the
+               eager QPS and host tests (one test a round, the parent's
+               loop), the traced busy share of one batch both ways and the
+               device memory around ``warmup``; and ``pipelined_search`` at
+               depth 1, 2, 3 with and without donation, bit-equal to
+               ``search``, with its wall seconds.
   5. quant   — ``set_pilot_dtype`` to bf16, int8, int4 and pq in turn (the
-               encode seconds, ``memory_report()``), then ``search`` with
+               encode seconds, ``memory_report()``; the compiled searches
+               dropped, the encoding's own captured), then ``search`` with
                persistent and per-hop stage ① over all queries: recall@10
                (bf16/int8 within 0.01 of fp32, int4/pq >= 0.90), QPS, the
                share of rows equal to the fp32 pilot's, launch counts per
@@ -149,27 +165,68 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, name: str, reps: int = 20, tries: int = 3):
+# every device_ms reading of this run: what it read, the events its
+# measured calls launch, the events each trace held, the reading of one
+# plain trace of the calls (the yardstick before PR 19: its events over the
+# calls, however many it held) and the accepted reading
+DEVICE_READS = []
+
+
+def device_ms(torch, fn, name: str, kernel=None, reps: int = 20,
+              tries: int = 3, lead: int = 5):
     """Mean device time (ms) per call of ``fn()`` of the kernels whose name
-    holds ``name``, from a torch.profiler trace of ``reps`` calls after one
-    warm call; a trace that holds no such device event (the profiler now
-    and then returns none) is taken again, up to ``tries`` times, and then
-    None."""
+    holds ``name``, from a torch.profiler trace.  A call launches
+    ``kernel.launches``' delta over a warm call of them (for a library
+    call, ``kernel=None``: the events of a traced call, the most of three).
+    The profiler loses the first device events of a trace when the host
+    has just run threaded BLAS (the first kernel it holds starts 1–6 ms
+    after the first launch, the last one in place; PERF.md PR 19), so each
+    trace runs ``lead`` calls before the ``reps`` it measures and averages
+    its last ``reps`` calls' events; a trace that holds fewer is taken
+    again, up to ``tries`` times, and then the reading is None, with the
+    reason printed."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
+
+    def events(calls):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and name in e.name]
-        if us:
-            return sum(us) / 1e3 / reps
-    return None
+        ev = sorted((e.time_range.start, e.time_range.elapsed_us())
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and name in e.name)
+        return [u for _, u in ev], [t for t, _ in ev]
+
+    before = kernel.launches if kernel is not None else 0
+    fn()
+    torch.cuda.synchronize()
+    per_call = (kernel.launches - before if kernel is not None
+                else round(max(len(events(lead + 1)[0]) for _ in range(3))
+                           / (lead + 1)))
+    plain = sum(events(reps)[0]) / 1e3 / reps
+    want, held, ms = reps * per_call, [], None
+    for _ in range(tries):
+        us, starts = events(lead + reps)
+        held.append(len(us))
+        if per_call and len(us) >= want:
+            ms = sum(us[-want:]) / 1e3 / reps
+            break
+    read = dict(name=name or "all", per_call=per_call, events_wanted=want,
+                events_held=held, plain_trace_ms=plain, ms=ms)
+    if ms is None and starts:
+        # where the last short trace lost its events: the held events'
+        # starts (µs after the first) and durations
+        read.update(starts_us=[round(t - starts[0], 1) for t in starts],
+                    durations_us=[round(u, 2) for u in us])
+    DEVICE_READS.append(read)
+    if ms is None:
+        print(f"[device_ms] {name or 'all kernels'}: {tries} traces of "
+              f"{lead} + {reps} calls held {held} device events, fewer than "
+              f"the {want} the last {reps} calls launch ({per_call} a call): "
+              f"not measured", flush=True)
+    return ms
 
 
 def fes_bound(r: int, QC: int, C: int, d: int, occ: int, row_b: int,
@@ -263,10 +320,10 @@ def list_recall(torch, x_pad, ids, k: int = 10, sample: int = 1000,
     return float(np.mean([len(set(a) & set(b)) / k for a, b in zip(got, gt)]))
 
 
-def profile_call(torch, name, fn) -> None:
+def profile_call(torch, name, fn):
     """Trace one call of ``fn()``: kernel time on the card over the wall
     time of the call (device busy share) and the kernels that take most of
-    it."""
+    it.  Returns (kernel ms, traced wall ms)."""
     from torch.profiler import ProfilerActivity, profile
     fn()                                                  # warm
     torch.cuda.synchronize()
@@ -286,6 +343,7 @@ def profile_call(torch, name, fn) -> None:
           f"{busy / 1e3:.3f} ms on the card (busy share "
           f"{busy / wall_us:.4f}), top: " + "; ".join(
               f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top), flush=True)
+    return busy / 1e3, wall_us / 1e3
 
 
 def kernel_names(torch, fn) -> list:
@@ -431,7 +489,7 @@ def rag_phase(torch, np, args, index, counts) -> list:
         extra = ""
         if dtype == torch.float32:
             fn = lambda: flash_attention(q, k, v, causal=causal)
-            devk = device_ms(torch, fn, "flash_fwd")
+            devk = device_ms(torch, fn, "flash_fwd", flash_attention)
             want = flash_attention_ref(q, k, v, causal=causal).float()
             lib_err = float((sdpa().transpose(1, 2).float() - want).abs().max())
             lib_names = kernel_names(torch, sdpa)
@@ -649,12 +707,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
+    import repro_torch.kernels as kernels_mod
     from repro_torch.core import device_build as DB
+    from repro_torch.core import multistage as M
     from repro_torch.core import quant as Q
     from repro_torch.core import traversal as T
     from repro_torch.core.engine import (IndexConfig, PilotANNIndex,
                                          recall_at_k)
     from repro_torch.core.multistage import SearchParams
+    from repro_torch.core.pipeline import pipelined_search
     from repro_torch.data import preset_dataset
     from repro_torch.kernels import (_build, fes_distances,
                                      fused_candidate_merge, fused_expand_merge,
@@ -817,7 +878,8 @@ def main() -> int:
     check(torch.allclose(got, want, rtol=1e-4, atol=1e-4 * d3),
           f"K3 fes_distances vs plain: max abs err {err3}")
     ms3 = time_ms(torch, lambda: fes_distances(qg, ev))
-    dev3 = device_ms(torch, lambda: fes_distances(qg, ev), FES_EVENT)
+    dev3 = device_ms(torch, lambda: fes_distances(qg, ev), FES_EVENT,
+                     fes_distances)
     plain3 = time_ms(torch, lambda: fes_distances_ref(qg, ev))
     lib3 = time_ms(torch, lambda: torch.cdist(qg, ev).square())
     libdev3 = device_ms(torch, lambda: torch.cdist(qg, ev).square(), "")
@@ -877,7 +939,8 @@ def main() -> int:
         ms2 = time_ms(torch, lambda: fused_traversal_hop(
             *hop_args, width=W, visited_mode="bloom"))
         dev2 = device_ms(torch, lambda: fused_traversal_hop(
-            *hop_args, width=W, visited_mode="bloom"), TRAVERSAL)
+            *hop_args, width=W, visited_mode="bloom"), TRAVERSAL,
+            fused_traversal_hop)
         plain2 = time_ms(torch, lambda: traversal_hop_ref(
             *hop_args, width=W, visited_mode="bloom"))
         unchecked = ~st.checked & (st.cand_id < nk)
@@ -916,7 +979,7 @@ def main() -> int:
         check(torch.equal(g, w), f"K6: {what} differ from the plain version")
     ms6 = time_ms(torch, lambda: fused_expand_merge(*k6_args))
     dev6 = device_ms(torch, lambda: fused_expand_merge(*k6_args),
-                     "expand_merge")
+                     "expand_merge", fused_expand_merge)
     plain6 = time_ms(torch, lambda: expand_merge_ref(*k6_args))
     bytes6 = B * dp * 4 + B * R * (dp * 4 + 4 + 1) + 2 * beam_bytes
     bound6 = 1e3 * bytes6 / HBM_BYTES_PER_S
@@ -951,7 +1014,7 @@ def main() -> int:
     same_bits(torch, got6, want6, "K6 B 8192", ("ids", "distances", "checked"))
     ms6w = time_ms(torch, lambda: fused_expand_merge(*k6_wide))
     dev6w = device_ms(torch, lambda: fused_expand_merge(*k6_wide),
-                      "expand_merge")
+                      "expand_merge", fused_expand_merge)
     Bw = k6_wide[0].shape[0]
     bytes6w = Bw * dp * 4 + Bw * R * (dp * 4 + 4 + 1) + 2 * Bw * ef * 9
     bound6w = 1e3 * bytes6w / HBM_BYTES_PER_S
@@ -993,7 +1056,7 @@ def main() -> int:
           f"K1: distances differ on identical beams, max abs err {err1}")
     ms1 = time_ms(torch, lambda: fused_pilot_search(*k1_args, rounds=512))
     dev1 = device_ms(torch, lambda: fused_pilot_search(*k1_args, rounds=512),
-                     TRAVERSAL)
+                     TRAVERSAL, fused_pilot_search)
     hops1 = int(rres[5].max())                  # the slowest query's rounds
     plain1 = time_ms(torch, lambda: pilot_search_ref(*k1_args, rounds=512),
                      reps=5, warmup=1)
@@ -1046,7 +1109,7 @@ def main() -> int:
               f"plain version away from a near-tie on {n_flip} rows")
         msq = time_ms(torch, lambda: fes_distances(qg, evq, **fside))
         devq = device_ms(torch, lambda: fes_distances(qg, evq, **fside),
-                         FES_EVENT)
+                         FES_EVENT, getattr(kernels_mod, fes_fn))
         plainq = time_ms(torch, lambda: fes_distances_ref(qg, evq, **fside))
         cb = fside["codebook"]
         boundq, byq = fes_bound(
@@ -1084,7 +1147,7 @@ def main() -> int:
                   ("ids", "distances", "checked", "visited", "fresh"))
         ms2q = time_ms(torch, lambda: fused_traversal_hop(*hop_args, **side))
         dev2q = device_ms(torch, lambda: fused_traversal_hop(*hop_args, **side),
-                          TRAVERSAL)
+                          TRAVERSAL, fused_traversal_hop)
         plain2q = time_ms(torch, lambda: traversal_hop_ref(*hop_args, **side))
         unchecked = ~st.checked & (st.cand_id < nk)
         n_sel = int(torch.minimum(unchecked.sum(1),
@@ -1106,7 +1169,7 @@ def main() -> int:
         ms1q = time_ms(torch, lambda: fused_pilot_search(*k1_args, rounds=512,
                                                          **side))
         dev1q = device_ms(torch, lambda: fused_pilot_search(
-            *k1_args, rounds=512, **side), TRAVERSAL)
+            *k1_args, rounds=512, **side), TRAVERSAL, fused_pilot_search)
         hops1q = int(rres[5].max())
         plain1q = time_ms(torch, lambda: pilot_search_ref(
             *k1_args, rounds=512, **side), reps=5, warmup=1)
@@ -1146,18 +1209,20 @@ def main() -> int:
     # ---- 4. the main path, end to end -----------------------------------
     gt = exact_topk(torch, torch.from_numpy(ds.vectors).to(dev),
                     torch.from_numpy(ds.queries).to(dev), 10)
+    # name: (baseline?, params)
     variants = {
-        "search": (index.search, SearchParams(
+        "search": (False, SearchParams(
             k=10, ef=128, ef_pilot=128, use_persistent_traversal=True)),
-        "search_per_hop": (index.search, SearchParams(
+        "search_per_hop": (False, SearchParams(
             k=10, ef=128, ef_pilot=128, use_pallas_traversal=True)),
-        "search_baseline": (index.search_baseline, SearchParams(
-            k=10, ef=128, ef_pilot=128)),
+        "search_baseline": (True, SearchParams(k=10, ef=128, ef_pilot=128)),
     }
     # the launches each path must make: K7 once per NN-descent round, for
     # the seeding and for the reverse-edge pass of each graph in the build; per search batch K1 and K3 once
     # on ``search``, K3 once and K2 at least once on the per-hop path, none
-    # on the baseline (no stage 0, no stage ①); K6 on no path
+    # on the baseline (no stage 0, no stage ①); K6 on no path.  The
+    # searches replay CUDA graphs, which add their captured launches to the
+    # counters at every replay
     n_batches = -(-args.queries // args.batch)
     none = {k: (0, 0) for k in launch_counts()}
     expect = {
@@ -1168,19 +1233,35 @@ def main() -> int:
                                fes_distances=(n_batches, n_batches)),
         "search_baseline": none,
     }
-    results = {}
+    results, outputs, graphs = {}, {}, {}
+    bucket = M.bucket_size(args.batch)
 
-    def drive(name, fn, params, tag="search"):
-        """All queries through one path, its launch counts set to 0 just
+    def drive(name, baseline, params, tag="search"):
+        """All queries through one path's compiled search (its CUDA graphs
+        captured by ``warmup`` first), its launch counts set to 0 just
         before it and read just after."""
-        ids, dists, stats, secs = [], [], [], 0.0
+        run = index.search_baseline if baseline else index.search
+        torch.cuda.synchronize()
+        peak0 = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        held0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        index.warmup(params, baseline=baseline, buckets=(bucket,))
+        warm_s = time.perf_counter() - t0
+        mem = dict(allocated_before=held0,
+                   allocated_after=torch.cuda.memory_allocated(),
+                   peak_before=peak0,
+                   peak_during=torch.cuda.max_memory_allocated())
+        prog = index._get_fn(params, baseline, bucket)
+        ids, dists, stats, secs, syncs, run_rounds = [], [], [], 0.0, [], []
         reset_launch_counts()
         for s in range(0, args.queries, args.batch):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            i, d, st_ = fn(ds.queries[s:s + args.batch], params)
+            i, d, st_ = run(ds.queries[s:s + args.batch], params)
             secs += time.perf_counter() - t0
             ids.append(i), dists.append(d), stats.append(st_)
+            syncs.append(prog.syncs), run_rounds.append(prog.rounds)
         counts[name] = launch_counts()
         ids, dists = np.concatenate(ids), np.concatenate(dists)
         stats = {k: np.concatenate([x[k] for x in stats]) for k in stats[0]}
@@ -1189,30 +1270,167 @@ def main() -> int:
               f"{name}: malformed result")
         rec = recall_at_k(ids, gt, 10)
         results[name] = (ids, rec)
-        # a batch runs as many host rounds as its slowest query needs
+        outputs[name] = (ids, dists, stats)
+        # a batch runs as many rounds as its slowest query needs; the graphs
+        # run whole chunks (CHUNK rounds between two host tests)
         rounds = {k: float(np.mean([stats[k][s:s + args.batch].max()
                                     for s in range(0, args.queries, args.batch)]))
                   for k in ("pilot_hops", "final_hops")}
+        graphs[name] = dict(
+            qps=args.queries / secs, host_tests_per_batch=float(np.mean(syncs)),
+            rounds_per_batch=rounds,
+            rounds_run_per_batch=np.mean(run_rounds, 0).tolist(),
+            warmup_s=warm_s, memory=mem, cache_stats=index.cache_stats())
         print(f"[{tag}] {name}: recall@10 {rec:.4f} | {args.queries / secs:.1f} "
               f"QPS ({args.queries} queries, batches of {args.batch}, "
-              f"{secs:.3f} s) | mean stats " + json.dumps(
+              f"{secs:.3f} s; CUDA graphs captured in {warm_s:.2f} s) | mean "
+              f"stats " + json.dumps(
                   {k: round(float(v.mean()), 2) for k, v in stats.items()})
               + f" | rounds per batch (its slowest query, mean over batches) "
-              f"{json.dumps(rounds)} | launches {json.dumps(counts[name])}",
-              flush=True)
+              f"{json.dumps(rounds)}, run by the graphs' chunks "
+              f"{graphs[name]['rounds_run_per_batch']}, host tests "
+              f"{graphs[name]['host_tests_per_batch']:.2f} | launches "
+              f"{json.dumps(counts[name])}", flush=True)
 
-    for name, (fn, params) in variants.items():
-        drive(name, fn, params)
+    def eager(baseline, params, B, n_q, pad=True):
+        """The first ``n_q`` queries in batches of ``B`` through the eager
+        program on the same padded bucket (``pad=False``: unpadded), with
+        one host test a round (the parent's loop, CHUNK 1): (ids, dists,
+        stats, seconds, host tests per batch)."""
+        program = M.baseline_search if baseline else M.multistage_search
+        tests = [0]
+        pending = T.pending
+
+        def counted(state, n):
+            tests[0] += 1
+            return pending(state, n)
+
+        out, secs = [], 0.0
+        with mock.patch.object(T, "CHUNK", 1), \
+                mock.patch.object(T, "pending", counted), torch.no_grad():
+            for s in range(0, n_q, B):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                q = index.rotate_queries(ds.queries[s:s + B])
+                q, b = M.pad_to_bucket(q) if pad else (q, q.shape[0])
+                i, d, st_ = program(index.arrays, params, q)
+                out.append((i[:b].cpu().numpy(), d[:b].cpu().numpy(),
+                            {k: v[:b].cpu().numpy() for k, v in st_.items()}))
+                secs += time.perf_counter() - t0
+        return (*joined(out), secs, tests[0] / len(out))
+
+    def joined(parts):
+        return (np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]),
+                {k: np.concatenate([p[2][k] for p in parts])
+                 for k in parts[0][2]})
+
+    def same_run(got, want, what):
+        """ids and distance bits equal, and every stats key where ``got``
+        has stats."""
+        check(np.array_equal(got[0], want[0]), f"{what}: ids differ")
+        check(np.array_equal(got[1].view(np.int32), want[1].view(np.int32)),
+              f"{what}: distance bits differ")
+        if got[2]:
+            check(set(got[2]) == set(want[2]), f"{what}: other stats keys")
+        for k in got[2]:
+            check(np.array_equal(got[2][k], want[2][k]),
+                  f"{what}: stats {k} differ")
+
+    for name, (baseline, params) in variants.items():
+        drive(name, baseline, params)
     for name, pattern in expect.items():
         for k, (lo, hi) in pattern.items():
             got = counts[name][k]
             check(got >= lo and (hi is None or got <= hi),
                   f"{name}: {k} launched {got} times, expected "
                   f"{lo}..{hi if hi is not None else ''}")
-    if args.profile:
-        for name, (fn, params) in variants.items():
-            profile_call(torch, name,
-                         lambda: fn(ds.queries[: args.batch], params))
+
+    # graph against eager: the same queries through the eager program on
+    # the same padded bucket, bit for bit, at the batch and at ragged sizes;
+    # QPS, host tests and the traced busy share of one batch, both ways
+    for name, (baseline, params) in variants.items():
+        run = index.search_baseline if baseline else index.search
+        *want, secs, tests = eager(baseline, params, args.batch, args.queries)
+        same_run(outputs[name], want, f"{name}: graph vs eager")
+        g = graphs[name]
+        g.update(eager_qps=args.queries / secs,
+                 eager_host_tests_per_batch=tests)
+        # and against the eager program on the unpadded batch: rows are
+        # independent, but cuBLAS and torch's reductions take other kernels
+        # for another number of rows, which moves the last bits of q·x, ‖q‖²
+        # and ‖x‖², and qn + vn − 2·dot cancels for near neighbours.  So:
+        # ids equal, and each distance within the fp32 bound of two
+        # summation orders of the d products (2·γ_d of each term, γ_d =
+        # d·2⁻²⁴: at most 2.5e-5 × (‖q‖² + ‖x‖²)); the bits moved and the
+        # largest relative difference are reported
+        g["unpadded"] = {}
+        for B in (1, 13, 100):
+            n_q = min(2 * B, args.queries)
+            got = joined([run(ds.queries[s:s + B], params)
+                          for s in range(0, n_q, B)])
+            same_run(got, eager(baseline, params, B, n_q)[:3],
+                     f"{name}: graph vs eager at B={B}")
+            flat = eager(baseline, params, B, n_q, pad=False)
+            qn = (index.reducer.rotate(ds.queries[:n_q]) ** 2).sum(-1)
+            xs = A["rot_vecs"][torch.from_numpy(got[0]).long().to(dev)]
+            bound = 2.5e-5 * (qn[:, None] + (xs * xs).sum(-1).cpu().numpy())
+            diff = np.abs(got[1] - flat[1])
+            check(np.array_equal(got[0], flat[0]) and (diff <= bound).all(),
+                  f"{name}: graph at bucket {M.bucket_size(B)} vs eager "
+                  f"unpadded at B={B}: ids differ or a distance moved more "
+                  f"than the fp32 bound")
+            g["unpadded"][B] = dict(
+                distance_bits_moved=int(
+                    (got[1].view(np.int32) != flat[1].view(np.int32)).sum()),
+                max_rel_diff=float((diff / np.maximum(np.abs(flat[1]),
+                                                      1e-30)).max()),
+                max_share_of_bound=float((diff / bound).max()))
+        # the traced busy share of one batch, and its kernel time over the
+        # untraced time of a batch (the profiler's own cost stays out)
+        q1 = ds.queries[:args.batch]
+        for way, label, fn, qps in (
+                ("", "graph", lambda: run(q1, params), g["qps"]),
+                ("eager_", "eager, one host test a round",
+                 lambda: eager(baseline, params, args.batch, args.batch),
+                 g["eager_qps"])):
+            busy, wall = profile_call(torch, f"{name} ({label})", fn)
+            g[f"{way}kernel_ms"] = busy
+            g[f"{way}busy_share"] = busy / wall
+            g[f"{way}kernel_share_untraced"] = busy * qps / (1e3 * args.batch)
+        print(f"[graphs] {name}: graph vs eager on the padded bucket bit-equal"
+              f" (ids, distance bits, every stats key) at B={args.batch} and at "
+              f"B=1, 13, 100 (against the unpadded batch: ids equal, "
+              f"distances within the fp32 bound, {json.dumps(g['unpadded'])}) "
+              f"| QPS {g['qps']:.1f} graph vs {g['eager_qps']:.1f} "
+              f"eager | host tests per batch {g['host_tests_per_batch']:.2f} vs "
+              f"{tests:.2f} | busy share traced {g['busy_share']:.4f} vs "
+              f"{g['eager_busy_share']:.4f}, kernel time over the untraced "
+              f"batch {g['kernel_share_untraced']:.4f} vs "
+              f"{g['eager_kernel_share_untraced']:.4f} | memory around warmup "
+              f"{json.dumps(g['memory'])} | cache_stats "
+              f"{json.dumps(g['cache_stats'])} ({stamp()})", flush=True)
+
+    # the stage pipeline: depth 1, 2, 3, with and without donation, over the
+    # batches of ``search``, bit-equal to it
+    batches = [index.rotate_queries(ds.queries[s:s + args.batch])
+               for s in range(0, args.queries, args.batch)]
+    pipe = []
+    for depth in (1, 2, 3):
+        for donate in (False, True):
+            res, wall = pipelined_search(index.arrays, variants["search"][1],
+                                         batches, depth=depth, donate=donate)
+            got = (np.concatenate([r[0] for r in res]),
+                   np.concatenate([r[1] for r in res]), {})
+            same_run(got, outputs["search"],
+                     f"pipelined_search depth={depth} donate={donate}")
+            pipe.append(dict(depth=depth, donate=donate, wall_s=wall,
+                             qps=args.queries / wall))
+    print(f"[pipeline] pipelined_search over {len(batches)} batches of "
+          f"{args.batch}, ids and distance bits equal to search at every "
+          f"depth: " + json.dumps(pipe) + f" ({stamp()})", flush=True)
+    print("[graphs] " + json.dumps(dict(graphs, pipelined_search=pipe)),
+          flush=True)
     check(np.array_equal(results["search"][0], results["search_per_hop"][0]),
           "persistent and per-hop stage ① give different ids")
     check(results["search"][1] >= results["search_baseline"][1] - 0.02,
@@ -1246,10 +1464,16 @@ def main() -> int:
               f"{json.dumps(mem)} | vector bytes {vec32} -> {vec_b} "
               f"({vec32 / vec_b:.2f}x smaller) ({stamp()})", flush=True)
         fes_fn = FES_KERNEL[dt]
+        check(index.compile_count() == 0,
+              f"{dt}: set_pilot_dtype kept {index.compile_count()} compiled "
+              f"searches of the old encoding")
         for name, W in ((f"search[{dt}]", "fused_pilot_search"),
                         (f"search_per_hop[{dt}]", "fused_traversal_hop")):
             params = variants[name.split("[")[0]][1]
-            drive(name, index.search, params, tag="quant")
+            drive(name, False, params, tag="quant")
+            check(index.compile_count(params) == 1,
+                  f"{name}: {index.compile_count(params)} compiled searches, "
+                  f"expected the encoding's own one")
             ids, rec = results[name]
             same = float((ids == ids32).all(1).mean())
             print(f"[quant] {name}: rows with the fp32 pilot's ids "
@@ -1311,6 +1535,10 @@ def main() -> int:
         k["launches"] = launched(counts[p], fn) if p else 0
         k["launches_by_path"] = {q: launched(c, fn) for q, c in counts.items()
                                  if launched(c, fn)}
+    print("[device_ms] every device-time reading of this run (events wanted "
+          "= calls x launches a call; plain_trace_ms = the reading before "
+          "PR 19: one trace of the calls, its events over the calls): "
+          + json.dumps(DEVICE_READS), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

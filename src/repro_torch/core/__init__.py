@@ -3,7 +3,10 @@ from repro_torch.core.engine import (IndexConfig, PilotANNIndex,
                                      arrays_from_numpy, brute_force_topk,
                                      recall_at_k, resolve_device)
 from repro_torch.core.multistage import SearchParams
+from repro_torch.core.pipeline import (degrade_params, pipelined_search,
+                                       split_stages)
 
 __all__ = ["IndexConfig", "PilotANNIndex", "ResidencyPlan",
            "ResidencyPlanner", "SearchParams", "arrays_from_numpy",
-           "brute_force_topk", "recall_at_k", "resolve_device"]
+           "brute_force_topk", "degrade_params", "pipelined_search",
+           "recall_at_k", "resolve_device", "split_stages"]

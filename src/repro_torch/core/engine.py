@@ -10,10 +10,15 @@ or auto) or, with ``build_method="nn_descent"``, by the device build
 uses the host's ``auto``.  ``build_seconds`` keeps the wall seconds by
 part.  The stage-① ("pilot") payloads live in a *compact* id space.
 
-Search (online, PyTorch): ``multistage_search`` / ``baseline_search`` run
-eagerly on the index's device.  Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``; with no card and no explicit ``"cpu"`` they
-raise — there is no silent CPU fallback.
+Search (online, PyTorch): ``search`` / ``search_baseline`` pad each batch
+to the ``batch_buckets`` ladder and run ``multistage_program`` /
+``baseline_program`` through a compiled call cached per (bucket, params,
+baseline) — CUDA graphs on the card, a plain callable on the CPU
+(``core/compiled.py``), the reference's jit cache with its LRU bound
+(``IndexConfig.jit_cache_capacity``), ``warmup``, ``compile_count`` and
+``cache_stats``.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; with no card and no explicit ``"cpu"`` they raise — there
+is no silent CPU fallback.
 
 The stage-① vector tables (primary rows and FES buckets) may be quantized
 (``IndexConfig.pilot_dtype``: float32, bfloat16, int8, int4 or pq,
@@ -30,15 +35,19 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import csr, fes, graph_build, multistage, quant, svd
+from repro_torch.core import (compiled, csr, fes, graph_build, multistage,
+                              quant, svd)
 from repro_torch.core.devices import resolve_device
-from repro_torch.core.multistage import SearchParams
+from repro_torch.core.multistage import (BATCH_BUCKETS, SearchParams,
+                                         pad_to_bucket)
 
 
 # stage-① side arrays of the quantized encodings (scale rows, codebooks)
@@ -73,8 +82,7 @@ def arrays_from_numpy(arrays: Dict[str, np.ndarray],
 
 @dataclass
 class IndexConfig:
-    """Build-time index knobs (the reference's, minus the jit-cache
-    bound)."""
+    """Build-time index knobs (the reference's)."""
     R: int = 32                  # graph degree bound
     sample_ratio: float = 0.25   # subgraph node ratio (paper Table 3)
     svd_ratio: float = 0.5       # primary-dims ratio (paper Table 3)
@@ -92,6 +100,10 @@ class IndexConfig:
     pilot_id_dtype: str = "auto"
     # optional hard budget for the stage-① resident bytes
     pilot_budget_bytes: Optional[int] = None
+    # LRU bound on the compiled-search cache, keyed (bucket, params,
+    # baseline); evictions are counted in ``PilotANNIndex.jit_evictions`` /
+    # ``cache_stats()``.  On the card each entry holds its graphs' memory.
+    jit_cache_capacity: int = 32
 
 
 class PilotANNIndex:
@@ -202,6 +214,7 @@ class PilotANNIndex:
         }, self.device)
         self.arrays.update(self._quantized_pilot_arrays(cfg.pilot_dtype))
         secs["tables"] = time.perf_counter() - t0
+        self._init_search_cache()
 
         if cfg.pilot_budget_bytes is not None:
             got = self.memory_report()["pilot_bytes"]
@@ -233,6 +246,7 @@ class PilotANNIndex:
         self.n = self.arrays["rot_vecs"].shape[0] - 1
         self.d = self.arrays["rot_vecs"].shape[1]
         self.n_pilot = self.arrays["pilot_to_full"].shape[0] - 1
+        self._init_search_cache()
         return self
 
     # ------------------------------------------------------------------
@@ -266,7 +280,8 @@ class PilotANNIndex:
 
     def set_pilot_dtype(self, pilot_dtype: str) -> "PilotANNIndex":
         """Re-encode the stage-① payloads in place (no graph or SVD
-        rebuild).  Re-checks ``pilot_budget_bytes``: on a violation the
+        rebuild) and drop the compiled searches, whose graphs hold the old
+        tables.  Re-checks ``pilot_budget_bytes``: on a violation the
         previous encoding is restored and ValueError raised.  Returns
         self."""
         quant.check_pilot_dtype(pilot_dtype)
@@ -292,6 +307,7 @@ class PilotANNIndex:
         for k in SIDE_KEYS:
             self.arrays.pop(k, None)
         self.arrays.update(self._quantized_pilot_arrays(pilot_dtype))
+        self._compiled_fns()            # drops the searches compiled before
 
     # ------------------------------------------------------------------
     def rotate_queries(self, queries) -> torch.Tensor:
@@ -301,26 +317,102 @@ class PilotANNIndex:
             queries = queries.detach().cpu().numpy()
         return torch.from_numpy(self.reducer.rotate(queries)).to(self.device)
 
-    def _run(self, queries, params: SearchParams, baseline: bool, rotated: bool
-             ) -> Tuple[np.ndarray, np.ndarray, Dict[str, np.ndarray]]:
+    def _init_search_cache(self) -> None:
+        # compiled searches keyed on (bucket, params, baseline): client
+        # batches are padded to a small fixed ladder of sizes, so ragged
+        # traffic compiles at most len(buckets) programs per params key
+        self.batch_buckets: Tuple[int, ...] = BATCH_BUCKETS
+        self._search_fns: "OrderedDict" = OrderedDict()
+        self._jit_evictions = 0
+        self._arrays_seen = None
+
+    def _compiled_fns(self) -> "OrderedDict":
+        """The compiled-search cache, first emptied if a tensor of
+        ``self.arrays`` was replaced since it was filled (a captured graph
+        holds the old tensors' addresses; ``set_pilot_dtype`` replaces
+        them).  The reference's jit takes ``arrays`` as arguments and has no
+        such drop; it counts in neither ``jit_evictions`` nor
+        ``compile_count``."""
+        seen = [(k, id(v)) for k, v in self.arrays.items()]
+        if seen != self._arrays_seen:
+            self._search_fns.clear()
+            self._arrays_seen = seen
+        return self._search_fns
+
+    def _get_fn(self, params: SearchParams, baseline: bool, bucket: int):
+        fns = self._compiled_fns()
+        key = (bucket, dataclasses.astuple(params), baseline)
+        if key in fns:
+            fns.move_to_end(key)                        # LRU touch
+            return fns[key]
+        while fns and len(fns) >= max(1, self.cfg.jit_cache_capacity):
+            fns.popitem(last=False)                     # evict least-recent
+            self._jit_evictions += 1
+        program = (multistage.baseline_program if baseline
+                   else multistage.multistage_program)
+        q = torch.zeros((bucket, self.d), dtype=torch.float32,
+                        device=self.device)
+        fns[key] = compiled.compile_program(
+            partial(program, dict(self.arrays), params), (q,))
+        return fns[key]
+
+    @property
+    def jit_evictions(self) -> int:
+        """Compiled searches evicted from the LRU-bounded cache so far."""
+        return self._jit_evictions
+
+    def cache_stats(self) -> Dict[str, int]:
+        """Compiled-search cache observables: live programs, LRU capacity,
+        lifetime eviction count."""
+        return {"cached_executables": len(self._compiled_fns()),
+                "capacity": self.cfg.jit_cache_capacity,
+                "jit_evictions": self._jit_evictions}
+
+    def compile_count(self, params: Optional[SearchParams] = None,
+                      baseline: Optional[bool] = None) -> int:
+        """Number of cached compiled searches, optionally filtered by
+        params / baseline-ness — the bounded-recompilation observable the
+        bucket ladder exists to cap."""
+        pk = None if params is None else dataclasses.astuple(params)
+        return sum(1 for (_, p, b) in self._compiled_fns()
+                   if (pk is None or p == pk)
+                   and (baseline is None or b == baseline))
+
+    def warmup(self, params: SearchParams, *, baseline: bool = False,
+               buckets: Optional[Tuple[int, ...]] = None) -> int:
+        """Compile (on the card: capture) one search per bucket, outside any
+        latency-sensitive window; returns the number of buckets warmed."""
+        buckets = buckets or self.batch_buckets
+        for b in buckets:
+            q = torch.zeros((b, self.d), dtype=torch.float32,
+                            device=self.device)
+            self._get_fn(params, baseline, b)(q)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return len(buckets)
+
+    def _run_bucketed(self, queries, params: SearchParams, baseline: bool,
+                      rotated: bool
+                      ) -> Tuple[np.ndarray, np.ndarray, Dict[str, np.ndarray]]:
         q = (torch.as_tensor(queries, dtype=torch.float32).to(self.device)
              if rotated else self.rotate_queries(queries))
-        fn = multistage.baseline_search if baseline else multistage.multistage_search
-        with torch.no_grad():
-            ids, dists, stats = fn(self.arrays, params, q)
-        return (ids.cpu().numpy(), dists.cpu().numpy(),
-                {k: v.cpu().numpy() for k, v in stats.items()})
+        # pad ragged client batches to the bucket ladder, so that the cache
+        # holds a small fixed set of shapes; results slice back
+        q, B = pad_to_bucket(q, self.batch_buckets)
+        ids, dists, stats = self._get_fn(params, baseline, q.shape[0])(q)
+        return (ids[:B].cpu().numpy(), dists[:B].cpu().numpy(),
+                {k: v[:B].cpu().numpy() for k, v in stats.items()})
 
     def search(self, queries, params: SearchParams, *, rotated: bool = False
                ) -> Tuple[np.ndarray, np.ndarray, Dict[str, np.ndarray]]:
         """Multi-stage search; returns numpy (ids (B, k), dists (B, k),
         stats) like the reference."""
-        return self._run(queries, params, False, rotated)
+        return self._run_bucketed(queries, params, False, rotated)
 
     def search_baseline(self, queries, params: SearchParams, *,
                         rotated: bool = False
                         ) -> Tuple[np.ndarray, np.ndarray, Dict[str, np.ndarray]]:
-        return self._run(queries, params, True, rotated)
+        return self._run_bucketed(queries, params, True, rotated)
 
     # ------------------------------------------------------------------
     def memory_report(self) -> Dict:

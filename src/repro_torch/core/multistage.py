@@ -18,6 +18,11 @@ visited filter directly; stage ③ lives in the full id space and rebuilds
 its filter from the handed-over beam.  Stages ② and ③ are PyTorch ops (the
 reference has no kernel for them either).  With stages disabled this
 reduces to plain greedy search (the ablation of Table 5).
+
+Each entry point is a *program* (``core/traversal.py``):
+``multistage_program`` / ``baseline_program`` yield their stage-① and
+stage-③ convergence loops, ``multistage_search`` / ``baseline_search``
+run them eagerly, and ``core/compiled.py`` captures them as CUDA graphs.
 """
 
 from __future__ import annotations
@@ -63,9 +68,9 @@ class SearchParams:
     use_persistent_traversal: bool = False
 
 
-# The reference's ladder of padded batch sizes.  PyTorch runs eagerly, so the
-# engine does not pad; ``pad_to_bucket`` stays for callers that need a small
-# fixed set of shapes (CUDA graph capture).
+# The reference's ladder of padded batch sizes: the engine and the stage
+# pipeline pad every batch to a rung, so the compiled-call cache
+# (``core/compiled.py``) holds a small fixed set of shapes.
 BATCH_BUCKETS: Tuple[int, ...] = (8, 16, 32, 64, 128)
 
 
@@ -83,13 +88,52 @@ def pad_to_bucket(queries: torch.Tensor,
                   buckets: Tuple[int, ...] = BATCH_BUCKETS
                   ) -> Tuple[torch.Tensor, int]:
     """Pad a query batch to its ladder bucket (zero rows); returns
-    ``(padded, original_B)``.  Padded rows are independent under the
-    batched traversal, so real rows are unchanged."""
+    ``(padded, original_B)``.  Callers slice results back to
+    ``original_B``.  Padded rows are independent under the batched
+    traversal (every per-query op is row-local and a converged row is a
+    fixed point), so real rows keep their ids; on the card their distances
+    may move in the last bits, where a library picks another kernel for
+    another number of rows."""
     B = queries.shape[0]
     nb = bucket_size(B, buckets)
     if nb == B:
         return queries, B
     return torch.nn.functional.pad(queries, (0, 0, 0, nb - B)), B
+
+
+def pilot_spec(params: SearchParams) -> T.TraversalSpec:
+    """Stage ①'s traversal: the pilot beam, on the CUDA kernels when asked."""
+    return T.TraversalSpec(ef=params.ef_pilot, visited_mode=params.visited_mode,
+                           bloom_bits=params.bloom_bits,
+                           max_iters=params.max_iters,
+                           frontier_width=params.frontier_width_pilot,
+                           use_pallas=(params.use_pallas_traversal or
+                                       params.use_persistent_traversal),
+                           use_persistent=params.use_persistent_traversal)
+
+
+def final_spec(params: SearchParams) -> T.TraversalSpec:
+    """Stage ③'s (and the baseline's) traversal, in torch ops."""
+    return T.TraversalSpec(ef=params.ef, visited_mode=params.visited_mode,
+                           bloom_bits=params.bloom_bits,
+                           max_iters=params.max_iters,
+                           frontier_width=params.frontier_width)
+
+
+def fes_entries(arrays: Dict[str, torch.Tensor], params: SearchParams,
+                q_primary: torch.Tensor) -> torch.Tensor:
+    """Stage 0: the (B, fes_L) compact pilot ids FES picks — the CUDA
+    distance kernel behind ``kernels/ops.fes_select`` on the card, the
+    plain ``fes_select_ref`` on the CPU."""
+    fes_args = (q_primary, arrays["fes_centroids"], arrays["fes_entries"],
+                arrays["fes_entry_ids"], arrays["fes_valid"])
+    fes_kw = dict(entries_scale=arrays.get("fes_entries_scale"),
+                  entries_codebook=arrays.get("fes_entries_codebook"),
+                  tombstone=arrays.get("pilot_tombstone"))
+    if q_primary.device.type == "cuda":
+        from repro_torch.kernels import ops
+        return ops.fes_select(*fes_args, L=params.fes_L, **fes_kw)[0]
+    return F.fes_select_ref(*fes_args, params.fes_L, **fes_kw)[0]
 
 
 def hierarchical_entries(arrays: Dict[str, torch.Tensor],
@@ -158,6 +202,12 @@ def refine_stage(arrays: Dict[str, torch.Tensor], params: SearchParams,
 def multistage_search(arrays: Dict[str, torch.Tensor], params: SearchParams,
                       queries: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, StatsDict]:
+    """``multistage_program`` run eagerly."""
+    return T.run_program(multistage_program(arrays, params, queries))
+
+
+def multistage_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
+                       queries: torch.Tensor) -> T.Program:
     """arrays: tensors built by engine.PilotANNIndex (or carried over from
     the reference with ``engine.arrays_from_numpy``) —
       full_neighbors (n+1, R), rot_vecs (n+1, d), residual (n+1, dr);
@@ -190,18 +240,7 @@ def multistage_search(arrays: Dict[str, torch.Tensor], params: SearchParams,
     # ---- stage 0: entry selection --------------------------------------
     entry_full = None          # full-id entries (pilot disabled paths)
     if params.use_fes:
-        fes_args = (q_primary, arrays["fes_centroids"], arrays["fes_entries"],
-                    arrays["fes_entry_ids"], arrays["fes_valid"])
-        fes_kw = dict(entries_scale=arrays.get("fes_entries_scale"),
-                      entries_codebook=arrays.get("fes_entries_codebook"),
-                      tombstone=ptomb)
-        if dev.type == "cuda":
-            from repro_torch.kernels import ops
-            entry_pilot, _ = ops.fes_select(*fes_args, L=params.fes_L,
-                                            **fes_kw)
-        else:
-            entry_pilot, _ = F.fes_select_ref(*fes_args, params.fes_L,
-                                              **fes_kw)
+        entry_pilot = fes_entries(arrays, params, q_primary)
         if not params.use_pilot:
             entry_full = ptf[entry_pilot.long()]
         # FES cost: one centroid pass + one cluster pass (counted per query)
@@ -221,18 +260,10 @@ def multistage_search(arrays: Dict[str, torch.Tensor], params: SearchParams,
 
     # ---- stage ①: pilot traversal (compact subgraph, primary dims) -----
     if params.use_pilot:
-        spec1 = T.TraversalSpec(ef=params.ef_pilot,
-                                visited_mode=params.visited_mode,
-                                bloom_bits=params.bloom_bits,
-                                max_iters=params.max_iters,
-                                frontier_width=params.frontier_width_pilot,
-                                use_pallas=(params.use_pallas_traversal or
-                                            params.use_persistent_traversal),
-                                use_persistent=params.use_persistent_traversal)
-        st1 = T.greedy_search(spec1, q_primary, arrays["sub_neighbors"],
-                              arrays["primary"], nk, entry_pilot,
-                              vec_scale=pilot_scale,
-                              vec_codebook=pilot_codebook, tombstone=ptomb)
+        st1 = yield from T.greedy_program(
+            pilot_spec(params), q_primary, arrays["sub_neighbors"],
+            arrays["primary"], nk, entry_pilot, vec_scale=pilot_scale,
+            vec_codebook=pilot_codebook, tombstone=ptomb)
         stats["pilot_dist"] = st1.n_dist
         stats["pilot_hops"] = st1.n_hops
         stats["pilot_expanded"] = st1.n_exp
@@ -252,26 +283,20 @@ def multistage_search(arrays: Dict[str, torch.Tensor], params: SearchParams,
         stats["refine_dist"] = zeros
 
     # ---- stage ③: final traversal (full graph + vectors) ---------------
-    spec3 = T.TraversalSpec(ef=params.ef, visited_mode=params.visited_mode,
-                            bloom_bits=params.bloom_bits,
-                            max_iters=params.max_iters,
-                            frontier_width=params.frontier_width)
+    spec3 = final_spec(params)
     if seed_id is not None:
-        st3 = T.greedy_search(spec3, queries, arrays["full_neighbors"],
-                              arrays["rot_vecs"], n,
-                              entry_ids=torch.full((Bq, 1), n,
-                                                   dtype=torch.int32,
-                                                   device=dev),
-                              extra_id=seed_id, extra_d=seed_d,
-                              tombstone=tomb)
+        st3 = yield from T.greedy_program(
+            spec3, queries, arrays["full_neighbors"], arrays["rot_vecs"], n,
+            entry_ids=torch.full((Bq, 1), n, dtype=torch.int32, device=dev),
+            extra_id=seed_id, extra_d=seed_d, tombstone=tomb)
     elif params.use_pilot:  # pilot w/o refine: re-score pilot beam fully
-        st3 = T.greedy_search(spec3, queries, arrays["full_neighbors"],
-                              arrays["rot_vecs"], n, entry_ids=cand_full,
-                              tombstone=tomb)
+        st3 = yield from T.greedy_program(
+            spec3, queries, arrays["full_neighbors"], arrays["rot_vecs"], n,
+            entry_ids=cand_full, tombstone=tomb)
     else:
-        st3 = T.greedy_search(spec3, queries, arrays["full_neighbors"],
-                              arrays["rot_vecs"], n, entry_ids=entry_full,
-                              tombstone=tomb)
+        st3 = yield from T.greedy_program(
+            spec3, queries, arrays["full_neighbors"], arrays["rot_vecs"], n,
+            entry_ids=entry_full, tombstone=tomb)
     stats["final_dist"] = st3.n_dist
     stats["final_hops"] = st3.n_hops
     stats["final_expanded"] = st3.n_exp
@@ -284,20 +309,23 @@ def multistage_search(arrays: Dict[str, torch.Tensor], params: SearchParams,
 def baseline_search(arrays: Dict[str, torch.Tensor], params: SearchParams,
                     queries: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor, StatsDict]:
+    """``baseline_program`` run eagerly."""
+    return T.run_program(baseline_program(arrays, params, queries))
+
+
+def baseline_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
+                     queries: torch.Tensor) -> T.Program:
     """Single-stage greedy search on the full index (the HNSW-CPU baseline),
     with the same ``stats`` schema as ``multistage_search``: the skipped
     stages report zero, the coarse entry-layer scan is charged as
     ``fes_dist`` and included in ``total_cpu_dist``."""
     n = arrays["rot_vecs"].shape[0] - 1
-    spec = T.TraversalSpec(ef=params.ef, visited_mode=params.visited_mode,
-                           bloom_bits=params.bloom_bits,
-                           max_iters=params.max_iters,
-                           frontier_width=params.frontier_width)
     slots, entry_cost = hierarchical_entries(arrays, queries, params)
     entries = arrays["coarse_ids"][slots]
-    st = T.greedy_search(spec, queries, arrays["full_neighbors"],
-                         arrays["rot_vecs"], n, entries,
-                         tombstone=arrays.get("tombstone"))
+    st = yield from T.greedy_program(final_spec(params), queries,
+                                     arrays["full_neighbors"],
+                                     arrays["rot_vecs"], n, entries,
+                                     tombstone=arrays.get("tombstone"))
     ids, dists = T.topk_from_state(st, params.k)
     zeros = torch.zeros_like(st.n_dist)
     return ids, dists, {"fes_dist": entry_cost,

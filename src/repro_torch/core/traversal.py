@@ -17,6 +17,13 @@ PyTorch versions.
 The traversal returns per-query distance-computation counts — the unit in
 which the paper reports all of its complexity results.
 
+A search runs as a *program*: a generator that yields each loop it runs to
+convergence (``Loop``) and gets the converged state back.  ``run_program``
+drives one eagerly; ``core/compiled.py`` captures the code between the
+loops, and ``CHUNK`` rounds of each loop, as CUDA graphs.  Both run a loop
+the same way (``run_to_convergence``): ``CHUNK`` rounds, then one host
+test.
+
 Ties: ``jnp.argsort`` is stable, so every sort here is
 ``torch.sort(stable=True)``; ``jnp.lexsort((d, ids))`` becomes two stable
 sorts (by d, then by id).
@@ -26,7 +33,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, Generator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,6 +41,13 @@ from repro_torch.core import bloom as B
 from repro_torch.core import quant
 
 INF = float("inf")
+
+# Rounds between two host tests of convergence.  A round on a converged
+# query is a fixed point of every field of its state (counters included),
+# so the rounds a batch runs past its convergence change nothing; 8 cuts
+# the host syncs of a stage-③ search (~130 rounds at ef 128) from one a
+# round to ~17, and wastes at most 7 rounds on a converged batch.
+CHUNK = 8
 
 
 class SearchState(NamedTuple):
@@ -272,18 +286,42 @@ def _kernel_round(spec: TraversalSpec, state: SearchState,
     )
 
 
+class Loop(NamedTuple):
+    """A convergence loop that a search program hands to its driver:
+    apply ``round_fn`` to ``state`` until no query has an unchecked
+    candidate, at most ``max_rounds`` times."""
+    round_fn: Callable[[SearchState], SearchState]
+    state: SearchState
+    n: int
+    max_rounds: int
+
+
+# a search program: yields its loops, is sent each loop's final state, and
+# returns its result
+Program = Generator[Loop, SearchState, object]
+
+
 def greedy_search(spec: TraversalSpec, queries: torch.Tensor,
                   neighbor_table: torch.Tensor, vector_table: torch.Tensor,
-                  n: int, entry_ids: torch.Tensor, *,
-                  iters: Optional[int] = None,
-                  visited: Optional[torch.Tensor] = None,
-                  extra_id: Optional[torch.Tensor] = None,
-                  extra_d: Optional[torch.Tensor] = None,
-                  nbr_fn=None, dist_fn=None,
-                  vec_scale: Optional[torch.Tensor] = None,
-                  vec_codebook: Optional[torch.Tensor] = None,
-                  tombstone: Optional[torch.Tensor] = None) -> SearchState:
-    """Greedy best-first search (Algorithm 1), batched, W-wide per round.
+                  n: int, entry_ids: torch.Tensor, **kw) -> SearchState:
+    """``greedy_program`` run eagerly (``run_program``)."""
+    return run_program(greedy_program(spec, queries, neighbor_table,
+                                      vector_table, n, entry_ids, **kw))
+
+
+def greedy_program(spec: TraversalSpec, queries: torch.Tensor,
+                   neighbor_table: torch.Tensor, vector_table: torch.Tensor,
+                   n: int, entry_ids: torch.Tensor, *,
+                   iters: Optional[int] = None,
+                   visited: Optional[torch.Tensor] = None,
+                   extra_id: Optional[torch.Tensor] = None,
+                   extra_d: Optional[torch.Tensor] = None,
+                   nbr_fn=None, dist_fn=None,
+                   vec_scale: Optional[torch.Tensor] = None,
+                   vec_codebook: Optional[torch.Tensor] = None,
+                   tombstone: Optional[torch.Tensor] = None) -> Program:
+    """Greedy best-first search (Algorithm 1), batched, W-wide per round,
+    as a program (module docstring).
 
     neighbor_table: (n+1, R) padded adjacency (row n = sentinel row).
     vector_table:   (n+1, d) vectors with a zero row at n, stored fp32,
@@ -292,10 +330,10 @@ def greedy_search(spec: TraversalSpec, queries: torch.Tensor,
     tombstone: optional (n+1,) bool deletion bitmap; tombstoned ids are
     sentinel-masked out of the adjacency, the entries and the handed-over
     beam before the search starts.
-    iters: if given, runs a fixed number of rounds; otherwise runs to
-    convergence (no unchecked candidate anywhere) with spec.max_iters as a
-    safety bound — a Python loop with one ``any()`` host sync per round.
-    With spec.use_persistent (and no hooks) the whole loop runs inside one
+    iters: if given, runs a fixed number of rounds and yields nothing;
+    otherwise yields one ``Loop`` to convergence (no unchecked candidate
+    anywhere) with spec.max_iters as a safety bound.  With
+    spec.use_persistent (and no hooks) the whole loop runs inside one
     persistent kernel instead; a converged round is a fixed point, so the
     results are identical either way.
     """
@@ -333,17 +371,49 @@ def greedy_search(spec: TraversalSpec, queries: torch.Tensor,
         for _ in range(iters):
             state = round_fn(state)
         return state
-    return run_to_convergence(round_fn, state, n, spec.max_iters)
+    return (yield Loop(round_fn, state, n, spec.max_iters))
+
+
+def run_program(program: Program):
+    """Drive a search program eagerly: each loop it yields runs through
+    ``run_to_convergence``.  Returns the program's result."""
+    try:
+        loop = next(program)
+        while True:
+            loop = program.send(run_to_convergence(*loop))
+    except StopIteration as done:
+        return done.value
+
+
+def pending(state: SearchState, n: int) -> torch.Tensor:
+    """0-dim bool: does any query still have an unchecked candidate?"""
+    return (~state.checked & (state.cand_id < n)).any()
+
+
+def chunk_sizes(max_rounds: int, chunk: int):
+    """The rounds of each chunk of a convergence loop: ``chunk`` at a time,
+    the last one only the rounds that remain of ``max_rounds``.  Drivers
+    test for work before each chunk (``run_to_convergence`` on the host's
+    tensors, ``core/compiled.py`` on a captured flag)."""
+    done = 0
+    while done < max_rounds:
+        m = min(chunk, max_rounds - done)
+        yield m
+        done += m
 
 
 def run_to_convergence(round_fn, state: SearchState, n: int,
                        max_rounds: int) -> SearchState:
     """Apply ``round_fn`` until no query has an unchecked candidate, at most
-    ``max_rounds`` times — one ``any()`` host sync per round."""
-    for _ in range(max_rounds):
-        if not bool((~state.checked & (state.cand_id < n)).any()):
+    ``max_rounds`` times: while a host test finds work, a chunk of
+    ``CHUNK`` rounds — one host sync per chunk.  Rounds past a query's
+    convergence are fixed points, so the result is the one a test before
+    every round gives."""
+    for m in chunk_sizes(max_rounds, CHUNK):
+        if not bool(pending(state, n)):
             break
-        state = round_fn(state)
+        for _ in range(m):
+            state = round_fn(state)
     return state
 
 

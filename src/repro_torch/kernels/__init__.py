@@ -32,7 +32,18 @@ def reset_launch_counts() -> None:
     flash_attention.bf16_launches = 0
 
 
+def add_launch_counts(delta: dict) -> None:
+    """Add ``{name: n}`` (names as in ``launch_counts``) to the counters: a
+    replayed CUDA graph counts the launches it holds this way."""
+    for name, n in delta.items():
+        if name == "flash_attention_bf16":
+            flash_attention.bf16_launches += n
+        else:
+            fn = next(k for k in KERNELS if k.__name__ == name)
+            fn.launches += n
+
+
 __all__ = ["KERNELS", "fes_distances", "fes_int4_distances",
            "fes_pq_distances", "fes_select", "flash_attention",
            "fused_candidate_merge", "fused_expand_merge", "fused_pilot_search", "fused_traversal_hop",
-           "launch_counts", "reset_launch_counts"]
+           "add_launch_counts", "launch_counts", "reset_launch_counts"]

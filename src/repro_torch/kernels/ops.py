@@ -38,8 +38,10 @@ def group_queries(queries: torch.Tensor, centroids: torch.Tensor, qc: int
 
     order = torch.sort(route, stable=True).indices                   # (B,)
     sroute = route[order]
-    counts = torch.bincount(route, minlength=r)
-    starts = counts.cumsum(0) - counts
+    # each cluster's first position in the sorted routes (``bincount``
+    # would read the routes' maximum back to the host: no host sync here,
+    # so that a CUDA graph can capture the selection)
+    starts = torch.searchsorted(sroute, torch.arange(r, device=dev))
     rank = torch.arange(B, device=dev) - starts[sroute]
     ok = rank < qc                                                   # capacity
     slot = torch.where(ok, sroute * qc + rank, r * qc)

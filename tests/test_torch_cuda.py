@@ -14,6 +14,7 @@ from repro_torch.core import bloom as TB
 from repro_torch.core import device_build as TDB
 from repro_torch.core import graph_build as TGB
 from repro_torch.core import quant as TQ
+from repro_torch.core.multistage import bucket_size
 from repro_torch.kernels import (build_kernel, fes_kernel, ops, ref as TR,
                                  topk_kernel, traversal_kernel)
 from repro_torch.kernels import flash_attention as k8
@@ -830,3 +831,158 @@ def test_model_and_rag_on_the_card(cuda):
     assert k8.launches == before + cfg.n_layers       # one embed
     assert out.shape == (3, 4) and ((out >= 0) & (out < cfg.vocab_size)).all()
     assert ids.shape == (3, 4) and ((ids >= 0) & (ids < 3000)).all()
+
+
+# ---------------------------------------------------------------------------
+# The compiled-call layer: searches as CUDA graphs (core/compiled.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card_index():
+    """A small index built on the host and served from the card (its own
+    compiled-search cache)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: see README)")
+    from repro_torch.core import IndexConfig, PilotANNIndex
+    from repro_torch.data import synthetic_vectors
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = synthetic_vectors(3000, 32, n_queries=128, seed=1)
+    index = PilotANNIndex(IndexConfig(R=16, sample_ratio=0.35, svd_ratio=0.5,
+                                      n_entry=512, build_method="exact"),
+                          ds.vectors, device="cuda")
+    return index, ds.queries
+
+
+def _eager(index, params, queries, baseline=False, pad=True):
+    """The eager program on the same padded bucket (or unpadded), sliced
+    back."""
+    from repro_torch.core import multistage as TM
+    q = index.rotate_queries(queries)
+    q, B = TM.pad_to_bucket(q) if pad else (q, q.shape[0])
+    fn = TM.baseline_search if baseline else TM.multistage_search
+    with torch.no_grad():
+        ids, dists, stats = fn(index.arrays, params, q)
+    return (ids[:B].cpu().numpy(), dists[:B].cpu().numpy(),
+            {k: v[:B].cpu().numpy() for k, v in stats.items()})
+
+
+def _bit_equal(got, want):
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1].view(np.int32), want[1].view(np.int32))
+    assert set(got[2]) == set(want[2])
+    for k in want[2]:
+        np.testing.assert_array_equal(got[2][k], want[2][k], err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [128, 13, 1])
+@pytest.mark.parametrize("path", ["persistent", "per_hop", "baseline"])
+def test_search_graphs_match_eager(card_index, B, path):
+    """``search`` replays CUDA graphs: ids, distance bits and every stats
+    key equal to the eager program on the same padded bucket; each kernel's
+    counter counts the replayed launches (K1 and K3 once a batch on the
+    persistent path, K3 once and K2 at least once per-hop, none on the
+    baseline)."""
+    from repro_torch.core import SearchParams
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    index, queries = card_index
+    kw = {"persistent": {"use_persistent_traversal": True},
+          "per_hop": {"use_pallas_traversal": True}, "baseline": {}}[path]
+    params = SearchParams(k=10, ef=48, ef_pilot=48, **kw)
+    baseline = path == "baseline"
+    run = index.search_baseline if baseline else index.search
+    index.warmup(params, baseline=baseline, buckets=(bucket_size(B),))
+    reset_launch_counts()
+    got = run(queries[:B], params)
+    counts = launch_counts()
+    _bit_equal(got, _eager(index, params, queries[:B], baseline))
+    fes, k1, k2 = (counts["fes_distances"], counts["fused_pilot_search"],
+                   counts["fused_traversal_hop"])
+    assert {"persistent": (fes, k1, k2) == (1, 1, 0),
+            "per_hop": fes == 1 and k1 == 0 and k2 >= 1,
+            "baseline": (fes, k1, k2) == (0, 0, 0)}[path], counts
+    prog = index._get_fn(params, baseline, bucket_size(B))
+    assert prog.syncs >= len(prog.rounds) >= 1
+    # against the unpadded batch: other kernels for another number of rows
+    # move the last bits (cancelling in qn + vn − 2·dot); ids stay, and
+    # each distance within the fp32 bound of two summation orders
+    flat = _eager(index, params, queries[:B], baseline, pad=False)
+    np.testing.assert_array_equal(got[0], flat[0])
+    q = index.rotate_queries(queries[:B])
+    x = index.arrays["rot_vecs"][torch.from_numpy(got[0]).long().to(q.device)]
+    bound = 2.5e-5 * ((q * q).sum(-1)[:, None] + (x * x).sum(-1)).cpu().numpy()
+    assert (np.abs(got[1] - flat[1]) <= bound).all()
+
+
+@pytest.mark.cuda
+def test_set_pilot_dtype_drops_graphs(cuda):
+    """After ``set_pilot_dtype`` the cache is empty and a search captures
+    and replays the new encoding's graph: the eager pq result, not the
+    fp32 graph's."""
+    from repro_torch.core import IndexConfig, PilotANNIndex, SearchParams
+    from repro_torch.data import synthetic_vectors
+    ds = synthetic_vectors(3000, 32, n_queries=64, seed=2)
+    index = PilotANNIndex(IndexConfig(R=16, sample_ratio=0.35, svd_ratio=0.5,
+                                      n_entry=512, build_method="exact"),
+                          ds.vectors, device="cuda")
+    params = SearchParams(k=10, ef=48, ef_pilot=48,
+                          use_persistent_traversal=True)
+    q = ds.queries[:64]
+    fp32 = index.search(q, params)
+    index.set_pilot_dtype("pq")
+    assert index.compile_count() == 0
+    got = index.search(q, params)
+    assert index.compile_count(params) == 1
+    _bit_equal(got, _eager(index, params, q))
+    # the pq pilot's own stage ①, not the fp32 graph's
+    assert not np.array_equal(got[2]["pilot_dist"], fp32[2]["pilot_dist"])
+    index.set_pilot_dtype("float32")
+    _bit_equal(index.search(q, params), fp32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,donate", [(1, False), (2, True), (3, True)])
+def test_pipelined_search_on_the_card(card_index, depth, donate):
+    """The pilot graph on one stream, the CPU-stage graph on another: ids
+    and distance bits equal to ``search``; with donation the visited
+    storage cycles through the pool."""
+    from repro_torch.core import SearchParams, pipelined_search, split_stages
+    from repro_torch.core.pipeline import is_consumed
+    index, queries = card_index
+    params = SearchParams(k=10, ef=48, ef_pilot=48,
+                          use_persistent_traversal=True)
+    batches = [index.rotate_queries(queries[i * 32:(i + 1) * 32])
+               for i in range(4)]
+    rec = []
+    results, dt = pipelined_search(index.arrays, params, batches, depth=depth,
+                                   donate=donate, record_into=rec)
+    for i, (ids, dists) in enumerate(results):
+        want = index.search(queries[i * 32:(i + 1) * 32], params)
+        np.testing.assert_array_equal(ids, want[0])
+        np.testing.assert_array_equal(dists.view(np.int32),
+                                      want[1].view(np.int32))
+    assert dt > 0 and sorted(r["batch"] for r in rec) == [0, 1, 2, 3]
+    pilot, cpu = split_stages(index.arrays, params, donate=True)
+    po = pilot(batches[0])
+    ptr = po[2].data_ptr()
+    cpu(batches[0], *po)
+    assert all(is_consumed(t) for t in po)
+    with pytest.raises(RuntimeError, match="consumed"):
+        cpu(batches[0], *po)
+    assert pilot(batches[0])[2].data_ptr() == ptr
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda):
+    """No fallback: a program that syncs with the host inside a captured
+    stretch fails its capture, and the failure raises."""
+    from repro_torch.core import compiled
+
+    def program(q):
+        if bool((q > 0).any()):        # a host sync: not capturable
+            q = q + 1
+        return q * 2
+        yield                           # a program (a generator)
+
+    with pytest.raises(RuntimeError, match="capture"):
+        compiled.compile_program(program, (torch.ones(8, 4, device=cuda),))
