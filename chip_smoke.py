@@ -9,8 +9,9 @@ Phases, one line each (any failed check exits non-zero):
                seconds (``src/repro_torch/kernels/_build.py`` compiles
                ``src/repro_torch/csrc/*.cu`` into ``build/``, one nvcc per
                source, all at once).
-  2. index   — DEEP-shaped corpus (``preset_dataset("deep", n)``, d = 96)
-               built with ``IndexConfig(build_method="nn_descent")``: the
+  2. index   — DEEP-shaped corpus (the first n rows of
+               ``preset_dataset("deep", n + hold)``, d = 96; the tail of
+               hold = 1% of n is held out for phase 7's upserts) built with ``IndexConfig(build_method="nn_descent")``: the
                full graph and the subgraph by NN-descent and the occlusion
                prune on the card (candidate-merge kernel K7), reverse edges,
                repair, FES and the coarse layer on the host.  Seconds by
@@ -42,7 +43,11 @@ Phases, one line each (any failed check exits non-zero):
                ``set_pilot_dtype``), the FES kernel of that entry encoding
                (K3 with a scale, K4, K5; within 1e-4, same top-L ids) and
                K2/K1 on the index's own encoded table from a real stage-①
-               state (bit-equal).
+               state (bit-equal); and K1/K2 with the deletion bitmap
+               (``tombstone=``): all-false bit-equal to none, 5% of the
+               pilot ids deleted bit-equal to the bitmap-free call on the
+               masked table and beam, held against the plain version, and
+               device time without, with an all-false and with a 5% bitmap.
   4. search  — all queries, in batches, through ``PilotANNIndex.search``
                (persistent and per-hop stage ①) and ``search_baseline``,
                each replaying the CUDA graphs ``warmup`` captured for its
@@ -90,6 +95,31 @@ Phases, one line each (any failed check exits non-zero):
                tokens, 8 new tokens (retrieve and search ms, decode
                tokens/s, K8 launched 22 times, all on the tensor cores:
                one embed).
+  7. serve   — the serving runtime at full width on phase 2's corpus,
+               ``SearchParams(k=10, ef=128, ef_pilot=128)``, persistent
+               stage ①: 7a ``ThroughputEngine`` (depth 2, donate) over the
+               index with all queries at t = 0 (ids and distance bits equal
+               to ``search`` on the same 128-row batches; QPS, buckets,
+               stage-graph memory); 7b 4 x the queries as Poisson arrivals
+               (``--seed``) at 0.5x and 0.9x of 7a's QPS (p50/p95/p99, QPS,
+               buckets; ids equal to ``search``'s, distances within the
+               fp32 bound); 7c 2x overload with ``max_pending``,
+               ``slo_timeout_s``, ``p99_budget_s`` from 7b's p50 and a
+               slow-executable window (every request in one terminal
+               state; goodput, reject/expire/degrade counts); 7d a second
+               build as ``SegmentedIndex`` (K7 again): with no mutation
+               ``search`` bit-equal to the eager program without the
+               bitmaps; 8 x the queries as Poisson arrivals at 0.5x of its
+               own QPS, without and then with the held-out rows as upserts
+               of 64 and deletes of top-1 gids in the same window (no
+               deleted gid after its delete applied, no stage rebuild, no
+               new program on a delete, recall@10 against the live corpus
+               >= the static recall - 0.03, inserted rows find themselves;
+               QPS retention, insert rate, the delta's route and ms per
+               merged batch); 7e insert 1,000, delete 1,000 and ``compact``
+               at ``--parity-n`` (gids kept, no tombstones, one stage
+               rebuild); 7f the semantic cache over 512 queries twice (hit
+               rate >= 0.45, each hit its first answer, ms per insert).
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU branch: without a CUDA
 device the script exits non-zero before printing any result.
@@ -684,6 +714,446 @@ def rag_phase(torch, np, args, index, counts) -> list:
                  shapes=[fp32])]
 
 
+def poisson(np, rate: float, n: int, seed: int):
+    """``n`` Poisson arrival times (seconds) at ``rate`` a second."""
+    return np.cumsum(np.random.default_rng(seed).exponential(1.0 / rate, n))
+
+
+def pcts(np, lat) -> dict:
+    lat = np.asarray(lat, float)
+    lat = lat[np.isfinite(lat)]
+    if not len(lat):
+        return {}
+    return {f"p{p}_ms": float(1e3 * np.percentile(lat, p)) for p in (50, 95, 99)}
+
+
+def open_loop(np, eng, queries, arrivals, mutations=()):
+    """Replay query arrivals, and mutations ``(time, kind, payload)``,
+    through ``eng.submit`` / ``submit_upsert`` / ``submit_delete`` and
+    ``pump``, then flush both; every time on the engine's clock.  Returns
+    (requests, their arrival times, [(ticket, time applied)], wall s)."""
+    import time as _t
+    eng._completions = {}
+    eng._t0 = _t.perf_counter()
+    reqs, tickets, applied = [], [], {}
+    i = j = 0
+    n, m = len(queries), len(mutations)
+    while i < n or j < m:
+        now = eng._now()
+        while i < n and arrivals[i] <= now:
+            reqs.append(eng.submit(queries[i]))
+            i += 1
+        while j < m and mutations[j][0] <= now:
+            _, kind, payload = mutations[j]
+            tickets.append(eng.submit_upsert(payload) if kind == "insert"
+                           else eng.submit_delete(payload))
+            j += 1
+        worked = eng.pump()
+        t_after = eng._now()
+        for t in tickets:
+            if t.done and id(t) not in applied:
+                applied[id(t)] = t_after
+        if not worked:
+            nxt = min(arrivals[i] if i < n else float("inf"),
+                      mutations[j][0] if j < m else float("inf"))
+            _t.sleep(min(max(nxt - t_after, 0.0), 5e-4))
+    eng.flush()
+    eng.flush_mutations()
+    end = eng._now()
+    for t in tickets:
+        applied.setdefault(id(t), end)
+    wall = max([eng._completions.get(r.rid, 0.0) for r in reqs] + [1e-9])
+    return reqs, arrivals[:len(reqs)], [(t, applied[id(t)]) for t in tickets], wall
+
+
+def results_of(np, reqs, k: int):
+    ids = np.full((len(reqs), k), -1, np.int64)
+    dists = np.full((len(reqs), k), np.inf, np.float32)
+    for j, r in enumerate(reqs):
+        if r.state == "completed":
+            ids[j], dists[j] = r.result
+    return ids, dists
+
+
+def serve_phase(torch, np, args, cfg, ds, held, index, gt, counts, search_out,
+                search_qps, static_recall):
+    """Phase 7: the serving runtime and the mutable index at full width
+    (module docstring).  Returns the numbers it printed."""
+    from repro_torch.core import multistage as M
+    from repro_torch.core.engine import PilotANNIndex, recall_at_k
+    from repro_torch.core.multistage import SearchParams
+    from repro_torch.core.segments import (SegmentedIndex,
+                                           _delta_brute_topk,
+                                           _delta_graph_topk)
+    from repro_torch.data import preset_dataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import FaultInjector
+    from repro_torch.serving import ServeParams, ThroughputEngine
+
+    dev = index.device
+    params = SearchParams(k=10, ef=128, ef_pilot=128,
+                          use_persistent_traversal=True)
+    out = {}
+    sids, sdists, _ = search_out          # ``search`` on 128-row batches
+    nq = len(ds.queries)
+    xq = index.reducer.rotate(ds.queries)
+    xq_n = (xq * xq).sum(-1)
+
+    def within_bound(ids, dists, rows, what):
+        """ids equal to ``search``'s, distances within the fp32 bound of two
+        summation orders (other buckets take other kernels)."""
+        A = index.arrays["rot_vecs"]
+        x = A[torch.from_numpy(ids).clamp(min=0).long().to(dev)]
+        bound = 2.5e-5 * (xq_n[rows][:, None] + (x * x).sum(-1).cpu().numpy())
+        check(np.array_equal(ids, sids[rows]), f"{what}: ids differ from "
+              f"search's")
+        check((np.abs(dists - sdists[rows]) <= bound).all(),
+              f"{what}: a distance moved more than the fp32 bound")
+
+    # ---- 7a. the immutable engine, closed loop -------------------------
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = ThroughputEngine(index, params, ServeParams(depth=2, donate=True))
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem_7a = torch.cuda.memory_allocated() - held0
+    reset_launch_counts()
+    ids, dists, st = eng.serve(ds.queries)
+    counts["serve"] = launch_counts()
+    check(st["bucket_hist"] == {M.bucket_size(args.batch): -(-nq // args.batch)},
+          f"7a: bucket histogram {st['bucket_hist']}")
+    check(np.array_equal(ids, sids) and np.array_equal(
+        dists.view(np.int32), sdists.view(np.int32)),
+          "7a: engine ids or distance bits differ from search on the same "
+          "128-row batches")
+    check(counts["serve"]["fused_pilot_search"] == st["batches"],
+          f"7a: K1 launched {counts['serve']['fused_pilot_search']} times "
+          f"for {st['batches']} batches")
+    qps_a = nq / st["wall_s"]
+    out["7a"] = dict(qps=qps_a, search_qps=search_qps,
+                     bucket_hist=st["bucket_hist"], warmup_s=warm_s,
+                     stage_programs=eng.compile_count(),
+                     stage_graph_memory_bytes=mem_7a,
+                     launches=counts["serve"])
+    print(f"[serve] 7a engine (depth 2, donate) over {nq} queries at t=0: "
+          f"{qps_a:.1f} QPS vs search {search_qps:.1f} | ids and distance bits "
+          f"equal to search | buckets {st['bucket_hist']} | "
+          f"{eng.compile_count()} stage programs captured in {warm_s:.2f} s, "
+          f"{mem_7a / 1e6:.1f} MB | launches {json.dumps(counts['serve'])} "
+          f"({stamp()})", flush=True)
+
+    # ---- 7b. open loop: Poisson arrivals at 0.5x and 0.9x ---------------
+    reps = 4
+    q4 = np.tile(ds.queries, (reps, 1))
+    rows4 = np.tile(np.arange(nq), reps)
+    out["7b"] = {}
+    for frac in (0.5, 0.9):
+        arr = poisson(np, frac * qps_a, len(q4), args.seed + 7)
+        hist0 = dict(eng.stats["bucket_hist"])
+        reqs, arr, _, wall = open_loop(np, eng, q4, arr)
+        ids, dists = results_of(np, reqs, 10)
+        check(all(r.state == "completed" for r in reqs), "7b: a request "
+              "did not complete")
+        within_bound(ids, dists, rows4, f"7b {frac}x")
+        lat = [eng._completions[r.rid] - a for r, a in zip(reqs, arr)]
+        hist = {b: c - hist0.get(b, 0)
+                for b, c in eng.stats["bucket_hist"].items()
+                if c - hist0.get(b, 0)}
+        row = dict(offered_qps=frac * qps_a, qps=len(reqs) / wall,
+                   **pcts(np, lat), bucket_hist=hist)
+        out["7b"][frac] = row
+        print(f"[serve] 7b open loop {len(q4)} Poisson arrivals at {frac}x "
+              f"({frac * qps_a:.1f}/s): {json.dumps(row)} | ids equal to "
+              f"search, distances within the fp32 bound ({stamp()})",
+              flush=True)
+    p50 = out["7b"][0.5]["p50_ms"] / 1e3
+
+    # ---- 7c. overload at 2x with admission, expiry, the degraded rung and
+    # a slow-executable window on the real clock --------------------------
+    inj = FaultInjector()
+    sp_c = ServeParams(depth=2, donate=True, max_pending=4 * args.batch,
+                       slo_timeout_s=5 * p50, p99_budget_s=2.5 * p50)
+    eng_c = ThroughputEngine(index, params, sp_c, fault_injector=inj)
+    arr = poisson(np, 2.0 * qps_a, len(q4), args.seed + 8)
+    # the first half of the offered window: every drained batch costs
+    # another 2 x p50
+    inj.inject("slow_executable", duration=0.5 * arr[-1], severity=2 * p50)
+    before = {k: eng_c.stats[k] for k in ("requests", "completed",
+                                           "rejected", "expired",
+                                           "degraded_batches")}
+    reqs, arr, _, wall = open_loop(np, eng_c, q4, arr)
+    s = {k: eng_c.stats[k] - v for k, v in before.items()}
+    states = [r.state for r in reqs]
+    check(all(x in ("completed", "rejected", "expired") for x in states),
+          "7c: a request ended in no terminal state")
+    check(s["completed"] + s["rejected"] + s["expired"] == len(reqs)
+          == s["requests"], f"7c: terminal states do not add up: {s}")
+    check(states.count("completed") == s["completed"], "7c: completed count")
+    lat = [eng_c._completions[r.rid] - a for r, a in zip(reqs, arr)
+           if r.state == "completed"]
+    out["7c"] = dict(offered_qps=2 * qps_a, goodput_qps=s["completed"] / wall,
+                     submitted=len(reqs), completed=s["completed"],
+                     rejected=s["rejected"], expired=s["expired"],
+                     degraded_batches=s["degraded_batches"],
+                     slow_window_fired=len(inj.log), p50_s=p50,
+                     **pcts(np, lat))
+    print(f"[serve] 7c overload at 2x ({2 * qps_a:.1f}/s) with max_pending "
+          f"{sp_c.max_pending}, slo_timeout {sp_c.slo_timeout_s:.4f} s, "
+          f"p99_budget {sp_c.p99_budget_s:.4f} s and a slow-executable window "
+          f"(+{2 * p50:.4f} s a batch): {json.dumps(out['7c'])} | every "
+          f"request in one terminal state ({stamp()})", flush=True)
+    del eng_c
+
+    # ---- 7d. the mutable index at full size ------------------------------
+    t0 = time.perf_counter()
+    seg = SegmentedIndex(cfg, ds.vectors, device=dev)
+    build_s = time.perf_counter() - t0
+    n = seg.base.n
+
+    def seg_search(queries):
+        """``seg.search`` in batches of ``--batch`` (bucket 128, as the
+        eager comparison: another bucket moves distance bits)."""
+        parts = [seg.search(queries[s0:s0 + args.batch], params)
+                 for s0 in range(0, len(queries), args.batch)]
+        return (np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]),
+                {k: np.concatenate([p[2][k] for p in parts])
+                 for k in parts[0][2]})
+    bare = {k: v for k, v in seg.base.arrays.items()
+            if k not in ("tombstone", "pilot_tombstone")}
+    g0, d0, _ = seg_search(ds.queries)
+    eg, ed = [], []
+    with torch.no_grad():
+        for s0 in range(0, nq, args.batch):
+            q, b = M.pad_to_bucket(seg.rotate_queries(ds.queries[s0:s0 + args.batch]))
+            i_, d_, _ = M.multistage_search(bare, params, q)
+            eg.append(i_[:b].cpu().numpy()), ed.append(d_[:b].cpu().numpy())
+    check(np.array_equal(g0, np.concatenate(eg)) and np.array_equal(
+        d0.view(np.int32), np.concatenate(ed).view(np.int32)),
+          "7d: with no mutation, seg.search differs from the eager search "
+          "without the bitmaps")
+    # the stage graphs' memory with the bitmaps (over the SegmentedIndex)
+    # and without (a second engine over phase 2's index), each measured
+    # around the engine's construction after the process's first engine,
+    # the repair searches of ``seg.warmup`` captured before
+    seg.warmup(params, ServeParams().buckets)
+    mem = {}
+    for name, idx in (("without_bitmaps", index), ("with_bitmaps", seg)):
+        torch.cuda.synchronize()
+        held0 = torch.cuda.memory_allocated()
+        e = ThroughputEngine(idx, params, ServeParams(depth=2, donate=True))
+        torch.cuda.synchronize()
+        mem[name] = torch.cuda.memory_allocated() - held0
+        if idx is index:
+            del e
+    eng_d = e
+    programs0 = eng_d.compile_count()
+    _, _, st = eng_d.serve(ds.queries)
+    qps_d = nq / st["wall_s"]
+    q8 = np.tile(ds.queries, (8, 1))
+    arr = poisson(np, 0.5 * qps_d, len(q8), args.seed + 9)
+    reqs, arr, _, wall = open_loop(np, eng_d, q8, arr)
+    lat = [eng_d._completions[r.rid] - a for r, a in zip(reqs, arr)]
+    static = dict(qps=len(reqs) / wall, **pcts(np, lat))
+    # the mutations: the held-out rows as upserts of 64, and deletes of
+    # base gids that were some query's top-1 (then top-2, ... to fill),
+    # all spread over the same window
+    dels = []
+    for c in range(10):
+        for g in np.unique(g0[:, c]):
+            if g not in dels and len(dels) < nq:
+                dels.append(int(g))
+    dels = np.asarray(dels, np.int64)
+    ups = [held[i:i + 64] for i in range(0, len(held), 64)]
+    span = arr[-1]
+    muts = sorted([(span * (i + 0.5) / len(ups), "insert", u)
+                   for i, u in enumerate(ups)]
+                  + [(span * (i + 0.5) / 16, "delete", dels[i::16])
+                     for i in range(16)], key=lambda m: m[0])
+    before = {k: eng_d.stats[k] for k in ("mutation_time_s", "upserts",
+                                           "deletes")}
+    reqs, arr, tickets, wall = open_loop(np, eng_d, q8, arr, muts)
+    ids, dists = results_of(np, reqs, 10)
+    done_t = np.array([eng_d._completions.get(r.rid, np.inf) for r in reqs])
+    for t, ta in tickets:
+        check(t.done and not t.failed, f"7d: a {t.kind} ticket failed: "
+              f"{t.error}")
+        if t.kind == "delete":
+            later = done_t > ta
+            check(not np.isin(ids[later], t.payload).any(),
+                  "7d: a deleted gid came back after its delete applied")
+    lat = [eng_d._completions[r.rid] - a for r, a in zip(reqs, arr)]
+    mut = dict(qps=len(reqs) / wall, **pcts(np, lat))
+    # from the first upsert's arrival to the last one applied
+    ins_wall = max(ta for t, ta in tickets if t.kind == "insert") - min(
+        m[0] for m in muts if m[1] == "insert")
+    mt = eng_d.stats["mutation_time_s"] - before["mutation_time_s"]
+    ins = eng_d.stats["upserts"] - before["upserts"]
+    check(ins == len(held) and eng_d.stats["deletes"] - before["deletes"]
+          == len(dels), "7d: not every mutation applied")
+    check(eng_d.stats["stage_rebuilds"] == 0, "7d: the stage pair was rebuilt")
+    # a delete re-captures nothing: the programs before and after 64 more
+    extra = np.setdiff1d(np.unique(g0[:, :10]), dels)[:64]
+    pre = (eng_d.compile_count(), seg.base.compile_count(),
+           [dict(d.compiled) for d in seg.deltas])
+    eng_d.submit_delete(extra)
+    eng_d.flush_mutations()
+    post = (eng_d.compile_count(), seg.base.compile_count(),
+            [dict(d.compiled) for d in seg.deltas])
+    check(pre == post and eng_d.compile_count() == programs0,
+          f"7d: a delete changed the compiled programs: {pre[:2]} -> "
+          f"{post[:2]}")
+    dels = np.concatenate([dels, extra])
+    # recall@10 against exact top-10 over the live corpus, on the card
+    corpus = torch.from_numpy(np.concatenate([ds.vectors, held])).to(dev)
+    cn = (corpus * corpus).sum(-1)
+    gone = torch.from_numpy(dels).to(dev)
+    qt = torch.from_numpy(ds.queries).to(dev)
+    live_gt = []
+    for s0 in range(0, nq, 256):
+        qb = qt[s0:s0 + 256]
+        d = (qb * qb).sum(-1)[:, None] + cn[None, :] - 2.0 * (qb @ corpus.T)
+        d[:, gone] = float("inf")
+        live_gt.append(torch.topk(d, 10, dim=1, largest=False).indices)
+    live_gt = torch.cat(live_gt).cpu().numpy()
+    del corpus, cn
+    g1, _, st1 = seg_search(ds.queries)
+    rec_mut = recall_at_k(g1, live_gt, 10)
+    check(not np.isin(g1, dels).any(), "7d: a deleted gid in a search")
+    check(rec_mut >= static_recall - 0.03, f"7d: recall@10 after mutation "
+          f"{rec_mut:.4f} below the static {static_recall:.4f} - 0.03")
+    # the first 64 inserted rows as queries: the fan-out's top-1; the
+    # delta's exact scan (its own row first: a check of the data); on the
+    # graph route the delta's compiled search against its eager program
+    # (ids equal) and how many it reaches.  The graph route is approximate,
+    # as in the reference: the bar is 0.95 of the rows first
+    delta = seg.deltas[0]
+    route = ("graph" if delta.live_count() > seg.up.brute_threshold
+             else "brute")
+    own = n + np.arange(64)
+    gs, ds_, _ = seg.search(held[:64], params)
+    self_first = int((gs[:, 0] == own).sum())
+    qh = seg.rotate_queries(held[:64])
+    with torch.no_grad():
+        bi, _ = _delta_brute_topk(qh, delta.arrays["rot_vecs"][:-1],
+                                  delta.arrays["valid"], 1)
+    check((delta.gids[bi[:, 0].cpu().numpy()] == own).all(),
+          "7d: an inserted row is not its own exact nearest in the delta")
+    self_diag = dict(first=self_first, in_top10=int(
+        sum(o in row for o, row in zip(own, gs))))
+    if route == "graph":
+        gi = delta.graph_fn(params, 10, 64)(qh)[0].cpu().numpy()
+        with torch.no_grad():
+            ei = _delta_graph_topk(delta.arrays, qh, params, 10)[0]
+        check(np.array_equal(gi, ei.cpu().numpy()), "7d: the delta's "
+              "captured search differs from its eager program")
+        self_diag["delta_graph_first"] = int(
+            (delta.gids[gi[:, 0]] == own).sum())
+    self_diag["misses"] = [dict(row=int(r), got=gs[r, :3].tolist(),
+                                dists=ds_[r, :3].tolist())
+                           for r in np.flatnonzero(gs[:, 0] != own)[:4]]
+    print(f"[serve] 7d inserted rows as queries ({route} delta route): "
+          f"{json.dumps(self_diag)}", flush=True)
+    check(self_first >= 0.95 * 64, f"7d: only {self_first}/64 inserted "
+          f"vectors return their own gid first")
+    qb = seg.rotate_queries(ds.queries[:args.batch])
+    delta_ms = time_ms(torch, lambda: seg._delta_topk(qb, delta, 10, params),
+                       reps=10, warmup=2)
+    batch_ms = 1e3 * args.batch / qps_d
+    out["7d"] = dict(
+        build_s=build_s, closed_loop_qps=qps_d, static=static, mutating=mut,
+        qps_retention=mut["qps"] / static["qps"],
+        inserted=int(ins), deleted=int(len(dels)),
+        insert_rate_pct_corpus_per_min=100.0 * ins / n / (ins_wall / 60.0),
+        insert_wall_s=ins_wall,
+        insert_rate_pct_per_min_of_mutation_time=100.0 * ins / n / (mt / 60.0),
+        mutation_time_s=mt, window_s=wall, delta_rows=delta.m,
+        delta_live=delta.live_count(), delta_route=route,
+        delta_ms_per_merged_batch=delta_ms,
+        delta_share_of_closed_loop_batch=delta_ms / batch_ms,
+        delta_compiled_programs=len(delta.compiled),
+        recall_after_mutation=rec_mut, static_recall=static_recall,
+        inserted_as_queries=self_diag,
+        stage_programs=programs0, stage_graph_memory_bytes=mem,
+        stage_rebuilds=eng_d.stats["stage_rebuilds"],
+        delta_dist_mean=float(np.mean(st1["delta_dist"])))
+    print(f"[serve] 7d mutable deep-{n}: built in {build_s:.1f} s; no "
+          f"mutation: search bit-equal to the eager program without the "
+          f"bitmaps | engine closed loop {qps_d:.1f} QPS | {len(q8)} Poisson "
+          f"queries at 0.5x: static {json.dumps(static)}, with {len(ups)} "
+          f"upserts of 64 and {len(dels) - len(extra)} deletes in the window "
+          f"{json.dumps(mut)} | {json.dumps(out['7d'])} ({stamp()})",
+          flush=True)
+    del eng_d
+
+    # ---- 7e. compact at --parity-n ---------------------------------------
+    hold_e = 1000
+    pds = preset_dataset("deep", args.parity_n + hold_e, n_queries=256,
+                         seed=args.seed + 1)
+    sege = SegmentedIndex(cfg, pds.vectors[:args.parity_n], device=dev)
+    eng_e = ThroughputEngine(sege, params, ServeParams(depth=2, donate=True))
+    eng_e.submit_upsert(pds.vectors[args.parity_n:])
+    rng = np.random.default_rng(args.seed + 10)
+    dele = np.concatenate([rng.choice(args.parity_n, hold_e // 2, replace=False),
+                           args.parity_n + rng.choice(hold_e, hold_e // 2,
+                                                      replace=False)])
+    eng_e.submit_delete(dele)
+    eng_e.flush_mutations()
+    live_before = np.flatnonzero(sege.is_live(np.arange(sege._next_gid)))
+    sege.compact()
+    ide, _, _ = eng_e.serve(pds.queries)
+    check(eng_e.stats["stage_rebuilds"] == 1, "7e: compact did not rebuild "
+          "the stage pair once")
+    check(np.array_equal(sege._base_gids, live_before), "7e: gids not kept")
+    check(not bool(sege.base.arrays["tombstone"].any()) and not sege.deltas,
+          "7e: tombstones or deltas left after compact")
+    check(np.isin(ide[ide >= 0], live_before).all() and not np.isin(
+        ide, dele).any(), "7e: a result is not a live gid")
+    out["7e"] = dict(n=args.parity_n, inserted=hold_e, deleted=len(dele),
+                     base_after=sege.base.n,
+                     stage_rebuilds=eng_e.stats["stage_rebuilds"])
+    print(f"[serve] 7e compact at n={args.parity_n}: {json.dumps(out['7e'])} "
+          f"| gids kept, no tombstones left ({stamp()})", flush=True)
+    del eng_e, sege
+
+    # ---- 7f. the semantic cache ------------------------------------------
+    eng_f = ThroughputEngine(index, params, ServeParams(
+        depth=2, donate=True, use_semantic_cache=True))
+    cache = eng_f.cache
+    ins_t = []
+    raw_insert = cache.insert
+
+    def timed_insert(emb, value):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        raw_insert(emb, value)
+        torch.cuda.synchronize()
+        ins_t.append(time.perf_counter() - t1)
+    cache.insert = timed_insert
+    q512 = ds.queries[:512]
+    i1, _, s1 = eng_f.serve(q512)
+    i2, _, s2 = eng_f.serve(q512)
+    hits = s1["cache_hits"] + s2["cache_hits"]
+    rate = hits / (s1["cache_lookups"] + s2["cache_lookups"])
+    check(rate >= 0.45, f"7f: cache hit rate {rate:.3f} below 0.45")
+    check(np.array_equal(i1, sids[:512]), "7f: the first pass (all misses, "
+          "batches of 128) differs from search")
+    check(np.array_equal(i1, i2), "7f: a cache hit differs from its first "
+          "answer")
+    after_build = ins_t[64:]
+    out["7f"] = dict(hit_rate=rate, hits=hits, qps_first=512 / s1["wall_s"],
+                     qps_second=512 / s2["wall_s"],
+                     insert_ms_mean=1e3 * float(np.mean(after_build)),
+                     insert_ms_p50=1e3 * float(np.median(after_build)),
+                     inserts=len(ins_t),
+                     maintenance=eng_f.stats["cache_maintenance"])
+    print(f"[serve] 7f semantic cache over 512 queries twice: "
+          f"{json.dumps(out['7f'])} | every hit equals its first answer "
+          f"({stamp()})", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=FULL_N)
@@ -716,7 +1186,7 @@ def main() -> int:
                                          recall_at_k)
     from repro_torch.core.multistage import SearchParams
     from repro_torch.core.pipeline import pipelined_search
-    from repro_torch.data import preset_dataset
+    from repro_torch.data import VectorDataset, preset_dataset
     from repro_torch.kernels import (_build, fes_distances,
                                      fused_candidate_merge, fused_expand_merge,
                                      fused_pilot_search, fused_traversal_hop,
@@ -742,7 +1212,15 @@ def main() -> int:
           flush=True)
 
     # ---- 2. index build: NN-descent + prune on the card -----------------
-    ds = preset_dataset("deep", args.n, n_queries=args.queries, seed=args.seed)
+    # n + hold rows of one DEEP-shaped corpus: the first n are the index,
+    # the tail (1% at full size) is held out for phase 7's upserts
+    hold = max(64, 10240 * args.n // FULL_N // 64 * 64)
+    full = preset_dataset("deep", args.n + hold, n_queries=args.queries,
+                          seed=args.seed)
+    ds = VectorDataset(vectors=full.vectors[:args.n], queries=full.queries,
+                       name=f"deep-{args.n}")
+    held = full.vectors[args.n:]
+    del full
     cfg = IndexConfig(build_method="nn_descent", seed=args.seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1079,6 +1557,71 @@ def main() -> int:
                            rounds_slowest=hops1, plain_ms=plain1,
                            bound_ms=bound1, bound_by="bytes",
                            library_ms=None))
+
+    # K1/K2 with the deletion bitmap (the tombstone= operand), from the same
+    # two states: an all-false bitmap bit-equal to no bitmap; 5% of the
+    # pilot ids deleted bit-equal to the bitmap-free launch on the masked
+    # table and the masked, re-sorted beam, and held against the plain
+    # version with the bitmap as above; device time without a bitmap, with
+    # an all-false one and with 5% deleted, in turns
+    rng_t = np.random.default_rng(args.seed + 5)
+    dead = torch.zeros(nk + 1, dtype=torch.bool, device=dev)
+    dead[torch.from_numpy(rng_t.choice(nk, nk // 20, replace=False)).to(dev)] = True
+    no_dead = torch.zeros_like(dead)
+    mnbr = torch.where(dead[nbr.long()], torch.full_like(nbr, nk), nbr)
+    tomb_rows = {}
+    for kname, fn, plain, kw, st in (
+            ("K2", fused_traversal_hop, traversal_hop_ref,
+             dict(width=1, visited_mode="bloom"), k6_state),
+            ("K1", fused_pilot_search, pilot_search_ref, dict(rounds=512),
+             T.init_state(T.TraversalSpec(ef=ef), qp, entry, vec, nk))):
+        a_ = (qp, nbr, vec, st.cand_id, st.cand_d, st.checked, st.visited, nk)
+        bare = fn(*a_, **kw)
+        zero = fn(*a_, tombstone=no_dead, **kw)
+        check(all(torch.equal(x, y) for x, y in zip(bare, zero)),
+              f"{kname}: an all-false bitmap differs from no bitmap")
+        got = fn(*a_, tombstone=dead, **kw)
+        gone = dead[st.cand_id.long().clamp(0, nk)]
+        bid = st.cand_id.masked_fill(gone, nk)
+        bd = st.cand_d.masked_fill(gone, float("inf"))
+        o = torch.sort(bd, dim=1, stable=True).indices
+        masked = fn(qp, mnbr, vec, bid.gather(1, o), bd.gather(1, o),
+                    st.checked.gather(1, o), st.visited, nk, **kw)
+        check(all(torch.equal(x, y) for x, y in zip(got, masked)),
+              f"{kname}: with 5% deleted differs from the masked-table call")
+        beam = got[0]
+        check(not bool(dead[beam.long().clamp(0, nk)][beam < nk].any()),
+              f"{kname}: a deleted id reached the beam")
+        want = plain(*a_, tombstone=dead, **kw)
+        rows_same = (got[0] == want[0]).all(1)
+        fin = torch.isfinite(want[1]) & rows_same[:, None]
+        errt = (float((got[1][fin] - want[1][fin]).abs().max())
+                if bool(fin.any()) else 0.0)
+        check(int(rows_same.sum()) >= 0.99 * B and torch.allclose(
+            got[1][fin], want[1][fin], rtol=1e-5, atol=1e-4),
+              f"{kname}: with the bitmap, kernel and plain version disagree")
+        dev_t = {label: device_ms(torch, lambda t=t: fn(*a_, tombstone=t, **kw),
+                                  TRAVERSAL, fn)
+                 for label, t in (("none", None), ("all_false", no_dead),
+                                  ("dead_5pct", dead), ("none_again", None))}
+        ms_t = {label: time_ms(torch, lambda t=t: fn(*a_, tombstone=t, **kw))
+                for label, t in (("none", None), ("all_false", no_dead),
+                                 ("dead_5pct", dead))}
+        tomb_rows[kname] = dict(rows_identical_to_plain=int(rows_same.sum()),
+                                max_abs_err=errt, device_ms=dev_t,
+                                event_ms=ms_t)
+        print(f"[kernels] {kname} tombstone= (nk={nk}, {nk // 20} ids "
+              f"deleted): all-false bitmap bit-equal to none; 5% deleted "
+              f"bit-equal to the masked-table call, no deleted id in a beam, "
+              f"{int(rows_same.sum())}/{B} rows identical to the plain "
+              f"version (max_abs_err {errt:.3g}) | device ms "
+              f"{json.dumps(dev_t)} | event ms {json.dumps(ms_t)} "
+              f"({stamp()})", flush=True)
+    for k in kernels:
+        if k["name"] in ("fused_pilot_search", "fused_traversal_hop"):
+            k["tombstone"] = tomb_rows["K1" if k["name"] ==
+                                       "fused_pilot_search" else "K2"]
+    del mnbr
 
     # ---- 3 (continued). every quantized encoding, on the index's own
     # encoded tables: the FES kernel of the encoding on the main path's
@@ -1516,6 +2059,13 @@ def main() -> int:
     kernels.extend(rag_phase(torch, np, args, index, counts))
     next(k for k in kernels if k["name"] == "flash_attention")[
         "shapes"].extend(k8_dims)
+
+    # ---- 7. serve: the runtime and the mutable index --------------------
+    serve_out = serve_phase(torch, np, args, cfg, ds, held, index, gt, counts,
+                            outputs["search"], graphs["search"]["qps"],
+                            results["search"][1])
+    print(f"[serve] {card} | " + json.dumps(serve_out, default=str),
+          flush=True)
 
     # each kernel's launches on the first path that must launch it (K7 on
     # the build, K1 and K3 on ``search``, K2 on the per-hop path; K6 on

@@ -5,8 +5,11 @@ from repro_torch.core.engine import (IndexConfig, PilotANNIndex,
 from repro_torch.core.multistage import SearchParams
 from repro_torch.core.pipeline import (degrade_params, pipelined_search,
                                        split_stages)
+from repro_torch.core.segments import (DeltaSegment, SegmentedIndex,
+                                       UpdateParams, merge_topk)
 
-__all__ = ["IndexConfig", "PilotANNIndex", "ResidencyPlan",
-           "ResidencyPlanner", "SearchParams", "arrays_from_numpy",
-           "brute_force_topk", "degrade_params", "pipelined_search",
-           "recall_at_k", "resolve_device", "split_stages"]
+__all__ = ["DeltaSegment", "IndexConfig", "PilotANNIndex", "ResidencyPlan",
+           "ResidencyPlanner", "SearchParams", "SegmentedIndex",
+           "UpdateParams", "arrays_from_numpy", "brute_force_topk",
+           "degrade_params", "merge_topk", "pipelined_search", "recall_at_k",
+           "resolve_device", "split_stages"]

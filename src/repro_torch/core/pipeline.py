@@ -31,6 +31,15 @@ outputs out into the boundary (the visited filter into the pooled buffer)
 rather than keeping D sets of graph outputs: one graph per bucket, and a
 copy of ~2 MB a batch at B 128.
 
+**Deletions** (a mutable index, ``core/segments.py``): as in the reference,
+the bitmaps are trailing arguments — ``pilot_stage(queries, pilot_tomb)``
+and ``cpu_stages(queries, *boundary, pilot_tomb, tomb)`` — read at each
+call, so a delete reaches the compiled stages without a new capture.  On
+the card they are inputs of the graphs like the queries, copied into the
+graph's own buffers at each call on the stage's stream.  Omitted, the
+stages compile programs with no masking at all (the reference's immutable
+traces); bitmap keys of ``arrays`` are not read by the stages.
+
 Ragged batches pad to their bucket inside both stages and slice back, so
 callers always see their own batch size.  The donated path keeps the
 reference's contract that batches on the kernel stage-① paths are
@@ -58,6 +67,7 @@ from repro_torch.core.multistage import (SearchParams, bucket_size,
 from repro_torch.core.multistage import pilot_spec as _pilot_spec
 
 INF = float("inf")
+TOMB_KEYS = ("pilot_tombstone", "tombstone")   # a mutable index's bitmaps
 
 
 def visited_buffer(params: SearchParams, batch: int, nk: int,
@@ -71,11 +81,21 @@ def visited_buffer(params: SearchParams, batch: int, nk: int,
     return BL.exact_init(batch, nk, device=device)
 
 
+def _with_tombs(arrays: Dict[str, torch.Tensor], tombs) -> Dict:
+    """``arrays`` with the bitmaps a stage was called with (none: no
+    masking), whatever bitmap keys ``arrays`` holds."""
+    arrays = {k: v for k, v in arrays.items() if k not in TOMB_KEYS}
+    arrays.update(zip(TOMB_KEYS, tombs))
+    return arrays
+
+
 def pilot_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
-                  queries: torch.Tensor) -> T.Program:
+                  queries: torch.Tensor, *tombs: torch.Tensor) -> T.Program:
     """FES and stage ① (on the card K3–K5 through ``ops.fes_select``, then
     K1 or K2): ``(cand_id, cand_d, visited)``, the pilot beam in compact
-    ids with its stage-① distances and the visited filter."""
+    ids with its stage-① distances and the visited filter.  ``tombs``:
+    ``()`` or ``(pilot_tomb,)``."""
+    arrays = _with_tombs(arrays, tombs)
     nk = arrays["pilot_to_full"].shape[0] - 1
     scale, codebook = arrays.get("primary_scale"), arrays.get("primary_codebook")
     dp = quant.primary_dim(arrays["primary"], scale, codebook=codebook)
@@ -89,8 +109,11 @@ def pilot_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
 
 def cpu_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
                 queries: torch.Tensor, cand_id: torch.Tensor,
-                cand_dp: torch.Tensor, visited: torch.Tensor) -> T.Program:
-    """Stages ② and ③ from a pilot boundary: ``(ids, dists)``."""
+                cand_dp: torch.Tensor, visited: torch.Tensor,
+                *tombs: torch.Tensor) -> T.Program:
+    """Stages ② and ③ from a pilot boundary: ``(ids, dists)``.  ``tombs``:
+    ``()`` or ``(pilot_tomb, tomb)``."""
+    arrays = _with_tombs(arrays, tombs)
     n = arrays["rot_vecs"].shape[0] - 1
     seed_id, seed_d, _ = refine_stage(arrays, params, queries, cand_id,
                                       cand_dp, visited=visited)
@@ -107,6 +130,19 @@ def is_consumed(t: torch.Tensor) -> bool:
     """Whether a donated stage boundary tensor was consumed by
     ``cpu_stages`` (the counterpart of ``jax.Array.is_deleted``)."""
     return getattr(t, "_consumed", False)
+
+
+def _tombs(tombs, want: int) -> list:
+    """The trailing bitmaps of a stage call: none, or exactly ``want``
+    1-D bool tensors."""
+    if len(tombs) not in (0, want):
+        raise TypeError(f"expected 0 or {want} trailing tombstone bitmaps, "
+                        f"got {len(tombs)}")
+    for t in tombs:
+        if t.dtype != torch.bool or t.dim() != 1:
+            raise ValueError(f"a tombstone bitmap is a 1-D bool tensor, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    return list(tombs)
 
 
 def _pad(x: torch.Tensor, rows: int, value) -> torch.Tensor:
@@ -126,28 +162,31 @@ class _Stages:
         self.nk = arrays["pilot_to_full"].shape[0] - 1
         self._fns: Dict[Tuple[str, int], object] = {}
 
-    def _call(self, program, inputs, fills) -> List[torch.Tensor]:
+    def _call(self, program, inputs, fills, tombs) -> List[torch.Tensor]:
         """``program`` on ``inputs`` padded to their bucket (rows of
-        ``fills``), compiled at first use; outputs sliced back, as views
-        of what the next call overwrites on the card."""
+        ``fills``) and the bitmaps ``tombs``, compiled at first use;
+        outputs sliced back, as views of what the next call overwrites on
+        the card."""
         B = inputs[0].shape[0]
         rows = bucket_size(B)
         inputs = [_pad(x, rows, v) for x, v in zip(inputs, fills)]
-        key = (program.__name__, rows)
+        inputs += tombs
+        key = (program.__name__, rows, len(tombs))
         if key not in self._fns:
             self._fns[key] = compiled.compile_program(
                 partial(program, self.arrays, self.params), inputs)
         return [t[:B] for t in self._fns[key](*inputs)]
 
-    def pilot(self, queries: torch.Tensor):
-        return tuple(t.clone() for t in self._call(pilot_program, [queries],
-                                                  [0.0]))
+    def pilot(self, queries: torch.Tensor, *tombs: torch.Tensor):
+        return tuple(t.clone() for t in self._call(
+            pilot_program, [queries], [0.0], _tombs(tombs, 1)))
 
     def cpu(self, queries: torch.Tensor, cand_id: torch.Tensor,
-            cand_dp: torch.Tensor, visited: torch.Tensor):
+            cand_dp: torch.Tensor, visited: torch.Tensor,
+            *tombs: torch.Tensor):
         ids, dists = self._call(cpu_program,
                                 [queries, cand_id, cand_dp, visited],
-                                [0.0, self.nk, INF, False])
+                                [0.0, self.nk, INF, False], _tombs(tombs, 2))
         return ids.clone(), dists.clone()
 
 
@@ -161,7 +200,7 @@ class _DonatedStages(_Stages):
         self._kernel = (params.use_pallas_traversal or
                         params.use_persistent_traversal)
 
-    def pilot(self, queries: torch.Tensor):
+    def pilot(self, queries: torch.Tensor, *tombs: torch.Tensor):
         Bq = queries.shape[0]
         if self._kernel and Bq % 8 != 0:
             raise ValueError(
@@ -169,7 +208,8 @@ class _DonatedStages(_Stages):
                 f"multiple of 8, as every rung of the bucket ladder is) with "
                 f"the kernel stage-① paths (got B={Bq}); pad with "
                 f"multistage.pad_to_bucket first")
-        cand_id, cand_d, visited = self._call(pilot_program, [queries], [0.0])
+        cand_id, cand_d, visited = self._call(pilot_program, [queries], [0.0],
+                                              _tombs(tombs, 1))
         pool = self._pool.get(Bq)
         buf = pool.pop() if pool else visited_buffer(self.params, Bq,
                                                      self.nk, queries.device)
@@ -177,12 +217,13 @@ class _DonatedStages(_Stages):
         return cand_id.clone(), cand_d.clone(), buf
 
     def cpu(self, queries: torch.Tensor, cand_id: torch.Tensor,
-            cand_dp: torch.Tensor, visited: torch.Tensor):
+            cand_dp: torch.Tensor, visited: torch.Tensor,
+            *tombs: torch.Tensor):
         boundary = (cand_id, cand_dp, visited)
         if any(is_consumed(t) for t in boundary):
             raise RuntimeError("this stage boundary was donated to an "
                                "earlier cpu_stages call and is consumed")
-        out = super().cpu(queries, *boundary)
+        out = super().cpu(queries, *boundary, *tombs)
         for t in boundary:
             t._consumed = True
         # the storage goes back to the pool as a new tensor object (the
@@ -196,19 +237,21 @@ def split_stages(arrays: Dict[str, torch.Tensor], params: SearchParams,
     """The pilot stage (FES + ①) and the CPU stages (②③ + top-k), each
     compiled separately so they can be dispatched independently (the
     pipelining boundary).  Returns ``(pilot_stage, cpu_stages)`` with
-    ``pilot_stage(queries) -> (cand_id, cand_d, visited)`` and
-    ``cpu_stages(queries, cand_id, cand_d, visited) -> (ids, dists)``, on
-    the device of the queries (the index's).
+    ``pilot_stage(queries[, pilot_tomb]) -> (cand_id, cand_d, visited)``
+    and ``cpu_stages(queries, cand_id, cand_d, visited[, pilot_tomb, tomb])
+    -> (ids, dists)``, on the device of the queries (the index's).
 
     donate=True swaps in the donated variant (module docstring): consuming
     the boundary in ``cpu_stages`` invalidates it, and the visited filter's
     storage is recycled into the next ``pilot_stage`` of the same batch
     size.  The interface and the results are identical either way.
 
-    The deletion bitmaps of a mutable index (trailing arguments in the
-    reference) come with ``core/segments.py``; ``shard_ctx`` (the
-    pod-sharded stage pair) with ``core/distributed.py``, ROADMAP Queue A
-    item 5, and raises until then."""
+    The deletion bitmaps of a mutable index (``core/segments.py``) are the
+    optional trailing arguments, as in the reference: given, they are read
+    at every call (a delete needs no new capture); omitted, the programs
+    carry no masking.  ``shard_ctx`` (the pod-sharded stage pair) needs
+    ``core/distributed.py``, ROADMAP Queue A item 5, and raises until
+    then."""
     if shard_ctx is not None:
         raise NotImplementedError(
             "sharded split_stages (shard_ctx) needs core/distributed.py, "

@@ -36,10 +36,15 @@ def svd_fit(x: np.ndarray, svd_ratio: float, *, sample: int = 131072,
     rng = np.random.default_rng(seed)
     n, d = x.shape
     xs = x[rng.choice(n, size=min(sample, n), replace=False)].astype(np.float32)
-    # economy SVD of the (sample, d) matrix; V spans the row space
-    _, s, vt = np.linalg.svd(xs, full_matrices=False)
+    # economy SVD of the (sample, d) matrix; V spans the row space.  With
+    # fewer rows than dims the economy V is (d, rows) and would drop dims
+    # (a 64-row semantic cache at d 96 rotates to 64 dims, and its inserts
+    # then fail in the reference); the full SVD completes it to a (d, d)
+    # rotation there, and is not taken where the economy V is already
+    # square, so those rotations stay the reference's bit for bit
+    _, s, vt = np.linalg.svd(xs, full_matrices=len(xs) < d)
     V = vt.T  # (d, d)
-    var = s ** 2
+    var = np.pad(s ** 2, (0, d - len(s)))
     explained = var / var.sum()
     d_primary = int(round(svd_ratio * d))
     d_primary = max(1, min(d, d_primary))

@@ -186,7 +186,8 @@ def expansion_round(spec: TraversalSpec, state: SearchState,
                     vector_table: torch.Tensor, n: int,
                     nbr_fn=None, dist_fn=None,
                     vec_scale: Optional[torch.Tensor] = None,
-                    vec_codebook: Optional[torch.Tensor] = None
+                    vec_codebook: Optional[torch.Tensor] = None,
+                    tombstone: Optional[torch.Tensor] = None
                     ) -> SearchState:
     """One synchronous W-wide neighbour-expansion round for the whole batch.
 
@@ -199,22 +200,30 @@ def expansion_round(spec: TraversalSpec, state: SearchState,
     ``nbr_fn(u) -> (B, R)`` and ``dist_fn(queries, ids, fresh)`` override
     the table lookups (stage ② scores full vectors through the compact
     ids this way); ``vec_scale``/``vec_codebook`` decode a quantized
-    ``vector_table``."""
+    ``vector_table``.  ``tombstone``: optional (n+1,) deletion bitmap; a
+    tombstoned neighbour reads as the sentinel (the kernel tests its bit,
+    the torch round masks the gathered rows, never the whole table)."""
     if spec.use_pallas and nbr_fn is None and dist_fn is None:
         return _kernel_round(spec, state, queries, neighbor_table,
-                             vector_table, n, vec_scale, vec_codebook)
+                             vector_table, n, vec_scale, vec_codebook,
+                             tombstone)
     return expand_round(spec, state, queries, neighbor_table, vector_table,
-                        n, nbr_fn, dist_fn, vec_scale, vec_codebook)[0]
+                        n, nbr_fn, dist_fn, vec_scale, vec_codebook,
+                        tombstone)[0]
 
 
 def expand_round(spec: TraversalSpec, state: SearchState,
                  queries: torch.Tensor, neighbor_table: torch.Tensor,
                  vector_table: torch.Tensor, n: int, nbr_fn=None,
                  dist_fn=None, vec_scale: Optional[torch.Tensor] = None,
-                 vec_codebook: Optional[torch.Tensor] = None
+                 vec_codebook: Optional[torch.Tensor] = None,
+                 tombstone: Optional[torch.Tensor] = None
                  ) -> Tuple[SearchState, torch.Tensor]:
     """The plain body of ``expansion_round``; also returns the (B, W·R)
-    ``fresh`` mask (the per-hop kernel's extra output)."""
+    ``fresh`` mask (the per-hop kernel's extra output).  ``tombstone``
+    masks each frontier's gathered ``(B, R)`` neighbour row, which equals
+    gathering from the masked table (the sentinel's own bit is clear); an
+    ``nbr_fn`` answers for its own rows, as in the reference."""
     W = spec.frontier_width
     unchecked, cum, sel = _frontier(state, n, W)
     has_work = unchecked.any(1)
@@ -227,8 +236,12 @@ def expand_round(spec: TraversalSpec, state: SearchState,
         mask_w = sel & (cum == w + 1)                     # w-th frontier slot
         u_w = torch.where(mask_w.any(1),
                           state.cand_id.masked_fill(~mask_w, 0).sum(1), n)
-        nw = (neighbor_table[u_w.long()] if nbr_fn is None
-              else nbr_fn(u_w)).to(torch.int32)           # (B, R)
+        if nbr_fn is None:
+            nw = neighbor_table[u_w.long()].to(torch.int32)   # (B, R)
+            if tombstone is not None:
+                nw = sentinel_mask(tombstone, nw, n)
+        else:
+            nw = nbr_fn(u_w).to(torch.int32)
         vw = nw < n
         key = nw.masked_fill(~vw, 0)
         fw = vw & ~_visited_test(spec, visited, key)
@@ -267,7 +280,8 @@ def _kernel_round(spec: TraversalSpec, state: SearchState,
                   queries: torch.Tensor, neighbor_table: torch.Tensor,
                   vector_table: torch.Tensor, n: int,
                   vec_scale: Optional[torch.Tensor] = None,
-                  vec_codebook: Optional[torch.Tensor] = None) -> SearchState:
+                  vec_codebook: Optional[torch.Tensor] = None,
+                  tombstone: Optional[torch.Tensor] = None) -> SearchState:
     """Fused expansion round: the whole W-wide hop body is one kernel
     launch; only the counters are kept here."""
     from repro_torch.kernels.traversal_kernel import fused_traversal_hop
@@ -277,7 +291,7 @@ def _kernel_round(spec: TraversalSpec, state: SearchState,
         queries, neighbor_table, vector_table, state.cand_id, state.cand_d,
         state.checked, state.visited, n, width=spec.frontier_width,
         visited_mode=spec.visited_mode, vec_scale=vec_scale,
-        vec_codebook=vec_codebook)
+        vec_codebook=vec_codebook, tombstone=tombstone)
     return SearchState(
         cand_id=new_id, cand_d=new_d, checked=new_ck, visited=visited,
         n_dist=state.n_dist + fresh.sum(1, dtype=torch.int32),
@@ -328,8 +342,10 @@ def greedy_program(spec: TraversalSpec, queries: torch.Tensor,
     bf16, int8, nibble-packed int4 or pq codes (``core/quant.py``); pass
     ``vec_scale`` for int8/int4 and ``vec_codebook`` for pq.
     tombstone: optional (n+1,) bool deletion bitmap; tombstoned ids are
-    sentinel-masked out of the adjacency, the entries and the handed-over
-    beam before the search starts.
+    sentinel-masked out of the entries and the handed-over beam before the
+    search starts, and out of the adjacency where each round reads it (the
+    kernels take the bitmap as an operand, the torch round masks the rows
+    it gathers), so no masked copy of the table is made.
     iters: if given, runs a fixed number of rounds and yields nothing;
     otherwise yields one ``Loop`` to convergence (no unchecked candidate
     anywhere) with spec.max_iters as a safety bound.  With
@@ -338,7 +354,6 @@ def greedy_program(spec: TraversalSpec, queries: torch.Tensor,
     results are identical either way.
     """
     if tombstone is not None:
-        neighbor_table = sentinel_mask(tombstone, neighbor_table, n)
         entry_ids = sentinel_mask(tombstone, entry_ids, n)
         if extra_id is not None:
             dead = tombstone[extra_id.long().clamp(0, n)]
@@ -356,7 +371,8 @@ def greedy_program(spec: TraversalSpec, queries: torch.Tensor,
             queries, neighbor_table, vector_table, state.cand_id,
             state.cand_d, state.checked, state.visited, n, rounds=rounds,
             width=spec.frontier_width, visited_mode=spec.visited_mode,
-            vec_scale=vec_scale, vec_codebook=vec_codebook)
+            vec_scale=vec_scale, vec_codebook=vec_codebook,
+            tombstone=tombstone)
         return SearchState(cand_id=nid, cand_d=nd, checked=nck,
                            visited=nvis, n_dist=state.n_dist + d_dist,
                            n_hops=state.n_hops + d_hops,
@@ -366,7 +382,7 @@ def greedy_program(spec: TraversalSpec, queries: torch.Tensor,
                        neighbor_table=neighbor_table,
                        vector_table=vector_table, n=n,
                        nbr_fn=nbr_fn, dist_fn=dist_fn, vec_scale=vec_scale,
-                       vec_codebook=vec_codebook)
+                       vec_codebook=vec_codebook, tombstone=tombstone)
     if iters is not None:
         for _ in range(iters):
             state = round_fn(state)

@@ -75,7 +75,20 @@
 //    entry (in candidate order) at #{beam with d <= its d} + #{fresh k'
 //    with d' < d, or d' == d and k' < k}; non-fresh candidates (+inf) can
 //    never reach the first ef.
-//  * a round without work is a fixed point, so each block exits on its own.
+//  * a round without work is a fixed point, so each block exits on its own;
+//  * tombstone (optional (n+1,) bool deletion bitmap, the reference's
+//    tombstone= operand, _apply_tombstone at traversal_kernel.py:373): a
+//    neighbour id whose byte is set reads as the sentinel n where warp 0
+//    takes the round's ids (never fresh, never scored), and a beam entry
+//    whose byte is set is loaded as (n, +inf), after which warp 0 moves the
+//    finite entries to the front in their order (the stable sort by
+//    distance, so the merge's sorted-beam precondition holds again).  The
+//    table itself is never copied: the bitmap (n+1 bytes, 0.25 MB at nk
+//    250,000) stays in L2.  The other warps' tile copies skip no dead
+//    candidate (a dead row is copied and never read, like a visited one),
+//    so the only added wait is the bitmap's bytes behind the ids in warp 0.
+//    A null bitmap is the operand-free kernel, and an all-false one gives
+//    the same result bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -294,6 +307,7 @@ pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
                        const unsigned char* __restrict__ vec,
                        const float* __restrict__ scale,
                        const float* __restrict__ codebook,
+                       const unsigned char* __restrict__ tomb,
                        const int* __restrict__ bid_in,
                        const float* __restrict__ bd_in,
                        const unsigned char* __restrict__ bck_in,
@@ -346,8 +360,14 @@ pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
     for (int k = tid; k < dq; k += nthr) scl[k] = scale[k];
   for (int i = tid; i < ef; i += nthr) {
     const size_t g = size_t(b) * ef + i;
-    id_c[i] = bid_in[g];
-    d_c[i] = bd_in[g];
+    int id = bid_in[g];
+    float d = bd_in[g];
+    if (tomb != nullptr && id < n && tomb[id]) {  // a deleted beam entry
+      id = n;
+      d = INFINITY;
+    }
+    id_c[i] = id;
+    d_c[i] = d;
     ck_c[i] = bck_in[g] ? 1 : 0;
   }
   for (int j = tid; j < WR; j += nthr) cfr[j] = 0;
@@ -374,6 +394,39 @@ pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
     }
   }
   __syncthreads();
+  if (tomb != nullptr) {
+    // the masked beam sorted again: finite entries first, then the +inf
+    // ones, each group in beam order (= the stable sort by distance of a
+    // beam whose finite entries were sorted)
+    if (warp == 0) {
+      int nfin = 0;
+      for (int base = 0; base < ef; base += 32) {
+        const int i = base + lane;
+        nfin += __popc(__ballot_sync(kFull, i < ef && d_c[i] < INFINITY));
+      }
+      const unsigned lt = (1u << lane) - 1u;
+      int kf = 0, ki = nfin;
+      for (int base = 0; base < ef; base += 32) {
+        const int i = base + lane;
+        const bool in = i < ef;
+        const bool f = in && d_c[i] < INFINITY;
+        const unsigned mf = __ballot_sync(kFull, f);
+        const unsigned mi = __ballot_sync(kFull, in && !f);
+        if (in) {
+          const int pos = f ? kf + __popc(mf & lt) : ki + __popc(mi & lt);
+          id_n[pos] = id_c[i];
+          d_n[pos] = d_c[i];
+          ck_n[pos] = ck_c[i];
+        }
+        kf += __popc(mf);
+        ki += __popc(mi);
+      }
+    }
+    __syncthreads();
+    int* ti = id_c; id_c = id_n; id_n = ti;
+    float* td = d_c; d_c = d_n; d_n = td;
+    int* tc = ck_c; ck_c = ck_n; ck_n = tc;
+  }
   const float qn = *qn_s;
 
   int c_dist = 0, c_hops = 0, c_exp = 0;  // thread 0's counters
@@ -397,22 +450,35 @@ pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
 
     if (warp == 0) {
       // ---- 2a. warp 0: the W·R ids (sentinel row n past the found
-      // frontiers, every load issued before the first is stored), then per
-      // frontier every id tested, the fresh ones inserted and compacted in
-      // candidate order
+      // frontiers, every load issued before the first is stored; with a
+      // bitmap, every id's byte loaded before the first is tested), then
+      // per frontier every id tested, the fresh ones inserted and
+      // compacted in candidate order
       constexpr int U = 8;
       for (int j0 = 0; j0 < WR; j0 += 32 * U) {
-        IdT v[U];
+        int v[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int j = j0 + 32 * u + lane;
           const int w = j / R;
-          if (j < WR) v[u] = nbr[size_t(w < found ? my_fu[w] : n) * R + (j - w * R)];
+          if (j < WR)
+            v[u] = static_cast<int>(nbr[size_t(w < found ? my_fu[w] : n) * R + (j - w * R)]);
+        }
+        if (tomb != nullptr) {
+          unsigned char dead[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int j = j0 + 32 * u + lane;
+            dead[u] = (j < WR && v[u] < n) ? tomb[v[u]] : 0;
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (dead[u]) v[u] = n;
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int j = j0 + 32 * u + lane;
-          if (j < WR) cid[j] = static_cast<int>(v[u]);
+          if (j < WR) cid[j] = v[u];
         }
       }
       __syncwarp();
@@ -607,7 +673,8 @@ pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
 }
 
 struct Args {
-  const void *q, *nbr, *vec, *scale, *codebook, *bid_in, *bd_in, *bck_in, *vis_in;
+  const void *q, *nbr, *vec, *scale, *codebook, *tomb, *bid_in, *bd_in, *bck_in,
+      *vis_in;
   void *bid_out, *bd_out, *bck_out, *vis_out, *fresh_out, *cnt_out;
   int B, dq, vw, ksub, n, R, ef, W, vbits, exact, rounds;
 };
@@ -651,7 +718,7 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.q), static_cast<const IdT*>(a.nbr),
       static_cast<const unsigned char*>(a.vec),
       static_cast<const float*>(a.scale), static_cast<const float*>(a.codebook),
-      static_cast<const int*>(a.bid_in), static_cast<const float*>(a.bd_in),
+      static_cast<const unsigned char*>(a.tomb), static_cast<const int*>(a.bid_in), static_cast<const float*>(a.bd_in),
       static_cast<const unsigned char*>(a.bck_in),
       static_cast<const unsigned char*>(a.vis_in), static_cast<int*>(a.bid_out),
       static_cast<float*>(a.bd_out), static_cast<unsigned char*>(a.bck_out),
@@ -697,18 +764,20 @@ size_t pilot_traversal_smem_limit() { return kSmemLimit; }
 // kernel), each block stopping early once its beam has no unchecked entry.
 // vec: (n+1, vw) table in encoding `enc` (Enc above); scale: (dq,) fp32 or
 // null (dense without scale); codebook: (dq, vw·ksub) fp32 for pq, else
-// null.  q is (B, dq).  fresh_out (B, W·R) and cnt_out (B, 3) = (n_dist,
+// null; tomb: (n+1,) bool deletion bitmap or null.  q is (B, dq).
+// fresh_out (B, W·R) and cnt_out (B, 3) = (n_dist,
 // n_hops, n_exp) deltas are written whole when not null.  Returns
 // cudaGetLastError() after the launch.
 int pilot_traversal(const void* q, const void* nbr, int id_bytes,
                     const void* vec, int enc, int vw, const void* scale,
-                    const void* codebook, int ksub, const void* bid_in,
-                    const void* bd_in, const void* bck_in, const void* vis_in,
+                    const void* codebook, int ksub, const void* tomb,
+                    const void* bid_in, const void* bd_in, const void* bck_in,
+                    const void* vis_in,
                     void* bid_out, void* bd_out, void* bck_out, void* vis_out,
                     void* fresh_out, void* cnt_out, int B, int dq, int n,
                     int R, int ef, int W, int vbits, int exact, int rounds,
                     void* stream) {
-  const Args a{q, nbr, vec, scale, codebook, bid_in, bd_in, bck_in, vis_in,
+  const Args a{q, nbr, vec, scale, codebook, tomb, bid_in, bd_in, bck_in, vis_in,
                bid_out, bd_out, bck_out, vis_out, fresh_out, cnt_out,
                B, dq, vw, ksub, n, R, ef, W, vbits, exact, rounds};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

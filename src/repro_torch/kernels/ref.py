@@ -161,14 +161,29 @@ def _state(beam_id, beam_d, beam_ck, visited) -> T.SearchState:
                          z, z, z)
 
 
+def apply_tombstone(tombstone, nbr_table, beam_id, beam_d, n: int):
+    """The reference's ``_apply_tombstone``: tombstoned adjacency targets
+    become the sentinel ``n``, tombstoned beam entries id ``n`` at +inf.
+    The identity for ``tombstone=None``."""
+    if tombstone is None:
+        return nbr_table, beam_id, beam_d
+    nbr_table = T.sentinel_mask(tombstone, nbr_table, n)
+    dead = tombstone[beam_id.long().clamp(0, n)]
+    return (nbr_table, beam_id.masked_fill(dead, n),
+            beam_d.masked_fill(dead, float("inf")))
+
+
 def traversal_hop_ref(q, nbr_table, vec_table, beam_id, beam_d, beam_ck,
                       visited, n: int, *, width: int = 1,
                       visited_mode: str = "bloom", vec_scale=None,
-                      vec_codebook=None):
+                      vec_codebook=None, tombstone=None):
     """One full W-wide expansion round (top-W frontier select, gather,
     sequential-per-frontier visited filter, distances, stable beam merge):
-    ``core.traversal``'s round body with ``pilot_dist_fn``.  Returns
-    (new_id, new_d, new_ck, new_visited, fresh) with fresh (B, W·R)."""
+    ``core.traversal``'s round body with ``pilot_dist_fn``, after
+    ``apply_tombstone``.  Returns (new_id, new_d, new_ck, new_visited,
+    fresh) with fresh (B, W·R)."""
+    nbr_table, beam_id, beam_d = apply_tombstone(tombstone, nbr_table,
+                                                 beam_id, beam_d, n)
     spec = T.TraversalSpec(ef=beam_id.shape[1], visited_mode=visited_mode,
                            frontier_width=width)
     dist_fn = pilot_dist_fn(q, vec_table, vec_scale, vec_codebook)
@@ -180,11 +195,14 @@ def traversal_hop_ref(q, nbr_table, vec_table, beam_id, beam_d, beam_ck,
 def pilot_search_ref(q, nbr_table, vec_table, beam_id, beam_d, beam_ck,
                      visited, n: int, *, rounds: int, width: int = 1,
                      visited_mode: str = "bloom", vec_scale=None,
-                     vec_codebook=None):
+                     vec_codebook=None, tombstone=None):
     """Run up to ``rounds`` W-wide expansion rounds (stopping at
-    convergence) of ``traversal_hop_ref``'s round.  Returns (beam_id, beam_d,
-    beam_ck, visited, n_dist, n_hops, n_exp) with the counters as (B,)
-    int32 deltas, like the persistent kernel."""
+    convergence) of ``traversal_hop_ref``'s round, after
+    ``apply_tombstone``.  Returns (beam_id, beam_d, beam_ck, visited,
+    n_dist, n_hops, n_exp) with the counters as (B,) int32 deltas, like the
+    persistent kernel."""
+    nbr_table, beam_id, beam_d = apply_tombstone(tombstone, nbr_table,
+                                                 beam_id, beam_d, n)
     spec = T.TraversalSpec(ef=beam_id.shape[1], visited_mode=visited_mode,
                            frontier_width=width)
     dist_fn = pilot_dist_fn(q, vec_table, vec_scale, vec_codebook)

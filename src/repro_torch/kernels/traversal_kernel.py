@@ -26,6 +26,15 @@ block barriers, and the filter moves in and out with 16-byte accesses.
 Where the tile of W·R rows would not fit, the kernel scores the fresh rows
 straight from device memory instead (one more dependent gather a round).
 
+Deletions: both wrappers take the reference's ``tombstone=`` operand, an
+optional ``(n+1,)`` bool bitmap (``_apply_tombstone`` at
+``traversal_kernel.py:373``): tombstoned adjacency targets read as the
+sentinel ``n`` and tombstoned beam entries as id ``n`` at ``+inf``.  The
+kernel tests each neighbour id's byte where it reads the id and masks the
+beam as it loads it (then sorts it again, stably), so no copy of the table
+is made; the plain versions mask the table and the beam.  ``None`` is the
+operand-free call, and an all-false bitmap gives its result bit for bit.
+
 Dropped TPU workarounds: one-hot-matmul gathers, the ``n < 2**24`` id cap,
 whole-table BlockSpecs, 128-lane visited padding and the BIG <-> +inf
 mapping (the kernel sorts +inf directly).
@@ -62,7 +71,7 @@ def _lib():
         lib.pilot_traversal.argtypes = (
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+             ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
             + [ctypes.c_void_p])
     return lib
 
@@ -116,9 +125,22 @@ def _smem_bytes(lib, key) -> int:
     return smem
 
 
+def check_tombstone(tombstone: Optional[torch.Tensor], n: int) -> None:
+    """Raise unless ``tombstone`` is None or an ``(n+1,)`` contiguous bool
+    bitmap (the kernel reads one byte per id)."""
+    if tombstone is None:
+        return
+    if (tombstone.dtype != torch.bool or tombstone.dim() != 1
+            or tombstone.shape[0] != n + 1 or not tombstone.is_contiguous()):
+        raise ValueError(f"tombstone must be a contiguous ({n + 1},) bool "
+                         f"bitmap, got {tuple(tombstone.shape)} "
+                         f"{tombstone.dtype}")
+
+
 def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
             n: int, *, width: int, visited_mode: str, rounds: int,
-            want_fresh: bool, vec_scale=None, vec_codebook=None):
+            want_fresh: bool, vec_scale=None, vec_codebook=None,
+            tombstone=None):
     Bq = q.shape[0]
     N1, R = nbr_table.shape
     ef = beam_id.shape[1]
@@ -136,6 +158,7 @@ def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
         raise ValueError(f"exact visited bitmap must have n+1={n + 1} bits, got {vbits}")
     if width < 1 or rounds < 0:
         raise ValueError(f"width >= 1 and rounds >= 0, got {width}, {rounds}")
+    check_tombstone(tombstone, n)
     enc, qk, scale, cb, ksub = encoding_operands(q, vec_table, vec_scale,
                                                  vec_codebook)
     dq = qk.shape[1]
@@ -169,7 +192,8 @@ def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
     rc = lib.pilot_traversal(
         _build.ptr(qk), _build.ptr(nbr_table), nbr_table.element_size(),
         _build.ptr(vec_table), code, vec_table.shape[1],
-        _build.ptr(scale), _build.ptr(cb), ksub, _build.ptr(bid), _build.ptr(bd),
+        _build.ptr(scale), _build.ptr(cb), ksub, _build.ptr(tombstone),
+        _build.ptr(bid), _build.ptr(bd),
         _build.ptr(bck), _build.ptr(vis), _build.ptr(oid), _build.ptr(od),
         _build.ptr(ock), _build.ptr(ovis), _build.ptr(fresh), _build.ptr(cnt),
         Bq, dq, n, R, ef, width, vbits, int(visited_mode == "exact"), rounds,
@@ -184,7 +208,8 @@ def fused_traversal_hop(q: torch.Tensor, nbr_table: torch.Tensor,
                         visited: torch.Tensor, n: int, *, width: int = 1,
                         visited_mode: str = "bloom",
                         vec_scale: Optional[torch.Tensor] = None,
-                        vec_codebook: Optional[torch.Tensor] = None
+                        vec_codebook: Optional[torch.Tensor] = None,
+                        tombstone: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, ...]:
     """One W-wide expansion round.
 
@@ -194,20 +219,22 @@ def fused_traversal_hop(q: torch.Tensor, nbr_table: torch.Tensor,
     int4 (``vec_scale`` (dp,)), or (n+1, m) int8 pq codes
     (``vec_codebook`` (dp, m·ksub)); beam_* (B, ef) sorted
     beam (+inf sentinel distances); visited (B, n_bits) bloom filter or
-    (B, n+1) exact bitmap.  Returns ``(new_id, new_d, new_ck, new_visited,
+    (B, n+1) exact bitmap; tombstone: optional (n+1,) bool deletion bitmap
+    (module docstring).  Returns ``(new_id, new_d, new_ck, new_visited,
     fresh)`` with fresh (B, W·R) — the semantics of
     ``core.traversal.expansion_round`` minus the counters."""
     if _build.on_cpu("traversal", q, nbr_table, vec_table, beam_id, beam_d,
-                     beam_ck, visited, vec_scale, vec_codebook):
+                     beam_ck, visited, vec_scale, vec_codebook, tombstone):
         return traversal_hop_ref(q, nbr_table, vec_table, beam_id, beam_d,
                                  beam_ck, visited, n, width=width,
                                  visited_mode=visited_mode,
                                  vec_scale=vec_scale,
-                                 vec_codebook=vec_codebook)
+                                 vec_codebook=vec_codebook,
+                                 tombstone=tombstone)
     oid, od, ock, ovis, fresh, _ = _launch(
         q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited, n,
         width=width, visited_mode=visited_mode, rounds=1, want_fresh=True,
-        vec_scale=vec_scale, vec_codebook=vec_codebook)
+        vec_scale=vec_scale, vec_codebook=vec_codebook, tombstone=tombstone)
     fused_traversal_hop.launches += int(q.shape[0] > 0)
     return oid, od, ock, ovis, fresh
 
@@ -218,7 +245,8 @@ def fused_pilot_search(q: torch.Tensor, nbr_table: torch.Tensor,
                        visited: torch.Tensor, n: int, *, rounds: int,
                        width: int = 1, visited_mode: str = "bloom",
                        vec_scale: Optional[torch.Tensor] = None,
-                       vec_codebook: Optional[torch.Tensor] = None
+                       vec_codebook: Optional[torch.Tensor] = None,
+                       tombstone: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, ...]:
     """Persistent stage-① search: up to ``rounds`` W-wide expansion rounds
     in one launch, each query's block exiting once its beam has no
@@ -226,16 +254,18 @@ def fused_pilot_search(q: torch.Tensor, nbr_table: torch.Tensor,
     ``(beam_id, beam_d, beam_ck, visited, n_dist, n_hops, n_exp)`` with the
     three counters as (B,) int32 deltas over the executed rounds."""
     if _build.on_cpu("traversal", q, nbr_table, vec_table, beam_id, beam_d,
-                     beam_ck, visited, vec_scale, vec_codebook):
+                     beam_ck, visited, vec_scale, vec_codebook, tombstone):
         return pilot_search_ref(q, nbr_table, vec_table, beam_id, beam_d,
                                 beam_ck, visited, n, rounds=rounds,
                                 width=width, visited_mode=visited_mode,
                                 vec_scale=vec_scale,
-                                vec_codebook=vec_codebook)
+                                vec_codebook=vec_codebook,
+                                tombstone=tombstone)
     oid, od, ock, ovis, _, cnt = _launch(
         q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited, n,
         width=width, visited_mode=visited_mode, rounds=rounds,
-        want_fresh=False, vec_scale=vec_scale, vec_codebook=vec_codebook)
+        want_fresh=False, vec_scale=vec_scale, vec_codebook=vec_codebook,
+        tombstone=tombstone)
     fused_pilot_search.launches += int(q.shape[0] > 0)
     return oid, od, ock, ovis, cnt[:, 0], cnt[:, 1], cnt[:, 2]
 

@@ -986,3 +986,117 @@ def test_failed_capture_raises(cuda):
 
     with pytest.raises(RuntimeError, match="capture"):
         compiled.compile_program(program, (torch.ones(8, 4, device=cuda),))
+
+
+# ---------------------------------------------------------------------------
+# Deletions: K1/K2's tombstone operand, the mutable index and the engine
+# ---------------------------------------------------------------------------
+
+def _sorted_masked_beam(tomb, bid, bd, bck, n):
+    """The masked beam a bitmap-free launch must be given: dead entries at
+    (n, +inf), then stably sorted by distance (what the kernel does)."""
+    dead = tomb[bid.long().clamp(0, n)]
+    bid, bd = bid.masked_fill(dead, n), bd.masked_fill(dead, float("inf"))
+    o = torch.sort(bd, dim=1, stable=True).indices
+    return bid.gather(1, o), bd.gather(1, o), bck.gather(1, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4",
+                                   "pq"])
+def test_traversal_kernels_tombstone_bit_equal(cuda, dtype):
+    """K2 (W 1 and 3) and K1 with a bitmap: an all-false bitmap is bit-equal
+    to no bitmap; 5% of ids deleted is bit-equal to the bitmap-free launch
+    on the masked table and the masked, re-sorted beam, and to the plain
+    version with the bitmap; no deleted id reaches a beam."""
+    arrs, n = _hop_inputs(29, 16, 32, 47, "bloom", seed=5)
+    if dtype == "float32":
+        vec, scale, cb = arrs[2], None, None
+    else:
+        vec, scale, cb = _encode(arrs[2].numpy(), dtype)
+    q, nbr, _, bid, bd, bck, vis = [a.to(cuda) for a in arrs[:2]] + [None] + [
+        a.to(cuda) for a in arrs[3:]]
+    vec = vec.to(cuda)
+    side = dict(vec_scale=None if scale is None else scale.to(cuda),
+                vec_codebook=None if cb is None else cb.to(cuda))
+    rng = np.random.default_rng(11)
+    dead = np.zeros(n + 1, bool)
+    dead[rng.choice(n, n // 20, replace=False)] = True
+    tomb = torch.from_numpy(dead).to(cuda)
+    none = torch.zeros(n + 1, dtype=torch.bool, device=cuda)
+    mnbr = torch.where(tomb[nbr.long()], torch.full_like(nbr, n), nbr)
+    mb = _sorted_masked_beam(tomb, bid, bd, bck, n)
+    calls = [(traversal_kernel.fused_traversal_hop, TR.traversal_hop_ref,
+              dict(width=W)) for W in (1, 3)]
+    calls.append((traversal_kernel.fused_pilot_search, TR.pilot_search_ref,
+                  dict(rounds=128, width=2)))
+    for fn, plain, kw in calls:
+        bare = fn(q, nbr, vec, bid, bd, bck, vis, n, **kw, **side)
+        zero = fn(q, nbr, vec, bid, bd, bck, vis, n, tombstone=none, **kw,
+                  **side)
+        for a, b in zip(bare, zero):
+            assert torch.equal(a, b)
+        got = fn(q, nbr, vec, bid, bd, bck, vis, n, tombstone=tomb, **kw,
+                 **side)
+        masked = fn(q, mnbr, vec, *mb, vis, n, **kw, **side)
+        want = plain(q, nbr, vec, bid, bd, bck, vis, n, tombstone=tomb, **kw,
+                     **side)
+        for a, b, c in zip(got, masked, want):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        beam = got[0]
+        assert not tomb[beam.long().clamp(0, n)][beam < n].any()
+
+
+@pytest.mark.cuda
+def test_inplace_delete_between_replays_recaptures_nothing(cuda):
+    """A delete between two replays of the captured search changes the
+    results (the deleted ids leave) and captures nothing new; the engine's
+    stage pair sees it too, with no stage rebuild."""
+    from repro_torch.core import IndexConfig, SearchParams, SegmentedIndex
+    from repro_torch.data import synthetic_vectors
+    from repro_torch.serving import ServeParams, ThroughputEngine
+    ds = synthetic_vectors(3000, 32, n_queries=64, seed=4)
+    s = SegmentedIndex(IndexConfig(R=16, sample_ratio=0.35, svd_ratio=0.5,
+                                   n_entry=512, build_method="exact"),
+                       ds.vectors, device="cuda")
+    params = SearchParams(k=10, ef=48, ef_pilot=48,
+                          use_persistent_traversal=True)
+    q = ds.queries[:64]
+    eng = ThroughputEngine(s, params, ServeParams(buckets=(64,), depth=2,
+                                                  max_wait_s=0.0))
+    g0, _, _ = s.search(q, params)
+    e0, _, _ = eng.serve(q)
+    fns = dict(s.base._search_fns)
+    np.testing.assert_array_equal(e0, g0)
+    dead = np.unique(g0[:, :3])
+    eng.submit_delete(dead)
+    eng.flush_mutations()
+    g1, d1, _ = s.search(q, params)
+    assert not np.isin(g1, dead).any() and not np.array_equal(g1, g0)
+    assert dict(s.base._search_fns) == fns          # the same programs
+    assert eng.stats["stage_rebuilds"] == 0
+    e1, ed1, _ = eng.serve(q)
+    np.testing.assert_array_equal(e1, g1)
+    np.testing.assert_array_equal(ed1.view(np.int32), d1.view(np.int32))
+
+
+@pytest.mark.cuda
+def test_engine_on_the_card_matches_search(card_index):
+    """The engine's stage graphs against ``search``'s at bucket 128: ids and
+    distance bits equal; K1 launched once a batch."""
+    from repro_torch.core import SearchParams
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ServeParams, ThroughputEngine
+    index, queries = card_index
+    params = SearchParams(k=10, ef=48, ef_pilot=48,
+                          use_persistent_traversal=True)
+    eng = ThroughputEngine(index, params, ServeParams(depth=2, donate=True,
+                                                      max_wait_s=0.0))
+    reset_launch_counts()
+    ids, dists, stats = eng.serve(queries[:128])
+    assert stats["bucket_hist"] == {128: 1}
+    assert launch_counts()["fused_pilot_search"] == 1
+    want = index.search(queries[:128], params)
+    np.testing.assert_array_equal(ids, want[0])
+    np.testing.assert_array_equal(dists.view(np.int32),
+                                  want[1].view(np.int32))
