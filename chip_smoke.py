@@ -120,6 +120,26 @@ Phases, one line each (any failed check exits non-zero):
                at ``--parity-n`` (gids kept, no tombstones, one stage
                rebuild); 7f the semantic cache over 512 queries twice (hit
                rate >= 0.45, each hit its first answer, ms per insert).
+  8. pod     — pod-sharded serving (``core/distributed.py``) with K shards
+               on the one card (``devices=["cuda:0"] * K``): 8a a
+               ``ShardedSegmentedIndex`` build of phase 2's corpus, K 4,
+               ``hot-replicated``, persistent stage ①: the sharded stage
+               pair bit-equal to the unsharded pair over the same base
+               arrays on all queries in batches of ``--batch``, ``search``
+               equal to the unsharded pair's merge, graph = eager at B 128
+               and 13; QPS of both pairs (twice each, in turns) and of
+               ``search``, K1 and K3 launches, ``PodIndexSpec``'s
+               ``pilot_bytes`` / ``full_bytes`` / ``delta_bytes`` beside the
+               bytes laid out per shard (hot, cold) and the build's peak
+               device memory; 8b at ``--parity-n``, against the
+               single-device ``SegmentedIndex`` on the same build (bases
+               checked equal): K 1, 2, 4 ``hot-replicated`` and K 2, 4
+               ``replicated`` (ids equal, distances within the fp32 bound),
+               int8 and pq pilots at K 2, inserts (round-robin over the
+               shards), deletes and ``compact`` at K 4, the engine (depth 2,
+               donate) at K 2 and 4 with interleaved upserts and deletes,
+               and a dead shard's overlay against the deleted-rows oracle,
+               then healed; bit-equal wherever not said otherwise.
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU branch: without a CUDA
 device the script exits non-zero before printing any result.
@@ -1154,6 +1174,280 @@ def serve_phase(torch, np, args, cfg, ds, held, index, gt, counts, search_out,
     return out
 
 
+def pod_phase(torch, np, args, cfg, ds, counts):
+    """Phase 8: pod-sharded serving on the card (module docstring).
+    Returns the numbers it printed."""
+    from repro_torch.core import multistage as M
+    from repro_torch.core import traversal as T
+    from repro_torch.core.distributed import (COLD_KEYS, PodIndexSpec,
+                                              ShardParams,
+                                              ShardedSegmentedIndex)
+    from repro_torch.core.engine import IndexConfig
+    from repro_torch.core.multistage import SearchParams
+    from repro_torch.core.pipeline import pilot_program, split_stages
+    from repro_torch.core.segments import SegmentedIndex
+    from repro_torch.data import preset_dataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ServeParams, ThroughputEngine
+
+    params = SearchParams(k=10, ef=128, ef_pilot=128,
+                          use_persistent_traversal=True)
+    out = {}
+    K = 4
+    nq = len(ds.queries)
+
+    def bits(a):
+        return np.asarray(a).view(np.int32)
+
+    def same(got, want, what):
+        check(np.array_equal(got[0], want[0]), f"{what}: ids differ")
+        check(np.array_equal(bits(got[1]), bits(want[1])),
+              f"{what}: distance bits differ")
+
+    # ---- 8a. deep-1M, K 4 shards on the one card, hot-replicated --------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sh = ShardedSegmentedIndex(cfg, ds.vectors, shard_params=ShardParams(
+        n_shards=K), devices=["cuda:0"] * K)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held0
+    base = sh.base
+    A = base.arrays
+    ptomb, tomb = sh.shard_tombs()
+    pilot_s, cpu_s = sh.stage_pair(params, donate=False)
+    pilot_u, cpu_u = split_stages(A, params)       # unsharded, same arrays
+    stages = pilot_s.__self__
+    check(not stages.eager, "8a: K shards on one card did not capture")
+    batches = [sh.rotate_queries(ds.queries[s0:s0 + args.batch])
+               for s0 in range(0, nq, args.batch)]
+
+    def run(pilot, cpu):
+        outs = [cpu(q, *pilot(q, ptomb), ptomb, tomb) for q in batches]
+        return [(i.cpu().numpy(), d.cpu().numpy()) for i, d in outs]
+
+    for pair in ((pilot_s, cpu_s), (pilot_u, cpu_u)):   # capture, warm
+        run(*pair)
+    torch.cuda.synchronize()
+    qps = {}
+    for name, pair in (("sharded", (pilot_s, cpu_s)),
+                       ("unsharded", (pilot_u, cpu_u)),
+                       ("sharded_2", (pilot_s, cpu_s)),
+                       ("unsharded_2", (pilot_u, cpu_u))):
+        t0 = time.perf_counter()
+        res = run(*pair)
+        qps[name] = nq / (time.perf_counter() - t0)
+        if name == "sharded":
+            got = res
+        elif name == "unsharded":
+            want = res
+    for (gi, gd), (wi, wd) in zip(got, want):
+        same((gi, gd), (wi, wd), "8a: sharded stage pair vs unsharded")
+    # the index's search (stage pair + host merge) and its launches
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    parts = [sh.search(ds.queries[s0:s0 + args.batch], params)
+             for s0 in range(0, nq, args.batch)]
+    search_qps = nq / (time.perf_counter() - t0)
+    counts["pod"] = launch_counts()
+    gids = np.concatenate([p[0] for p in parts])
+    gd = np.concatenate([p[1] for p in parts])
+    merged = [sh.merge_with_deltas(q, i, d, params.k, params)[:2]
+              for q, (i, d) in zip(batches, want)]
+    same((gids, gd), (np.concatenate([m[0] for m in merged]),
+                      np.concatenate([m[1] for m in merged])),
+         "8a: sharded search vs the unsharded pair's merge")
+    nb = len(batches)
+    check(counts["pod"]["fused_pilot_search"] == nb
+          and counts["pod"]["fes_distances"] == nb,
+          f"8a: K1/K3 launched {counts['pod']['fused_pilot_search']}/"
+          f"{counts['pod']['fes_distances']} times for {nb} batches")
+    # graph against eager: the captured sharded pair against its programs
+    # run eagerly on the same padded bucket
+    for B in (args.batch, 13):
+        q, b = M.pad_to_bucket(sh.rotate_queries(ds.queries[:B]))
+        gi, gdd = cpu_s(q, *pilot_s(q, ptomb), ptomb, tomb)
+        with torch.no_grad():
+            po = T.run_program(pilot_program(stages.arrays, params, q, ptomb))
+            ei, ed = T.run_program(stages._cpu_program(
+                stages.arrays, params, q, *po, ptomb, tomb))
+        same((gi[:b].cpu().numpy(), gdd[:b].cpu().numpy()),
+             (ei[:b].cpu().numpy(), ed[:b].cpu().numpy()),
+             f"8a: graph vs eager at B {B}")
+    spec = PodIndexSpec(n=base.n, d=base.d, d_primary=A["primary"].shape[1],
+                        R=A["full_neighbors"].shape[1], n_pilot=base.n_pilot,
+                        fes_r=A["fes_entries"].shape[0],
+                        fes_capacity=A["fes_entries"].shape[1],
+                        query_batch=args.batch, mutable=True)
+    # bytes each shard reads, as laid out (a replica shared with other
+    # shards on the card counted for each)
+    nbytes = lambda t: int(t.numel() * t.element_size())
+    sbytes = [{"hot": sum(nbytes(v[s]) for k, v in sh._shard_arrays.items()
+                          if k not in COLD_KEYS),
+               "cold": sum(nbytes(sh._shard_arrays[k][s]) for k in COLD_KEYS)}
+              for s in range(K)]
+    torch.cuda.synchronize()
+    out["8a"] = dict(
+        n=base.n, shards=K, build_s=build_s, qps=qps, search_qps=search_qps,
+        qps_ratio=qps["sharded"] / qps["unsharded"],
+        launches=counts["pod"], spec_pilot_bytes=spec.pilot_bytes(),
+        spec_full_bytes=spec.full_bytes(),
+        spec_full_bytes_per_shard=spec.full_bytes() / K,
+        spec_delta_bytes=spec.delta_bytes(), shard_bytes=sbytes,
+        memory_report_pilot_bytes=base.memory_report()["pilot_bytes"],
+        build_peak_bytes=peak,
+        held_bytes=torch.cuda.memory_allocated() - held0,
+        stage_programs=len(stages._fns))
+    print(f"[pod] 8a deep-{base.n}, {K} shards on cuda:0 (hot-replicated), "
+          f"persistent stage ①: sharded pair ids and distance bits equal to "
+          f"the unsharded pair over the same arrays on {nq} queries in "
+          f"batches of {args.batch}, search equal to the unsharded merge, "
+          f"graph = eager at B {args.batch} and 13 | "
+          f"{json.dumps(out['8a'])} ({stamp()})", flush=True)
+    del sh, stages, pilot_s, cpu_s, pilot_u, cpu_u
+
+    # ---- 8b. the parity matrix at --parity-n (cheap builds) --------------
+    t_b = time.perf_counter()
+    hold = 1000
+    pds = preset_dataset("deep", args.parity_n + hold, n_queries=256,
+                         seed=args.seed + 2)
+    x, extra, pq_ = (pds.vectors[:args.parity_n], pds.vectors[args.parity_n:],
+                     pds.queries)
+    matrix = {}
+
+    def shard(K, placement="hot-replicated", c=cfg):
+        return ShardedSegmentedIndex(c, x, shard_params=ShardParams(
+            n_shards=K, placement=placement), devices=["cuda:0"] * K)
+
+    def same_base(a, b, what):
+        check(all(torch.equal(v, b.base.arrays[k])
+                  for k, v in a.base.arrays.items()
+                  if k not in ("tombstone", "pilot_tombstone")),
+              f"{what}: the two builds of one corpus differ (the sharded "
+              f"comparison needs equal bases)")
+
+    def search(idx):
+        parts = [idx.search(pq_[s0:s0 + 128], params)
+                 for s0 in range(0, len(pq_), 128)]
+        return (np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]))
+
+    def within_bound(got, want, idx, what):
+        check(np.array_equal(got[0], want[0]), f"{what}: ids differ")
+        xr = idx.base.arrays["rot_vecs"]
+        qr = idx.rotate_queries(pq_)
+        x2 = (xr[torch.from_numpy(got[0]).clamp(min=0).to(xr.device)] ** 2
+              ).sum(-1).cpu().numpy()
+        bound = 2.5e-5 * ((qr * qr).sum(-1).cpu().numpy()[:, None] + x2)
+        err = np.abs(got[1] - want[1])
+        check((err <= bound).all(), f"{what}: a distance moved more than "
+              f"the fp32 bound")
+        return float(err.max())
+
+    seg = SegmentedIndex(cfg, x, device="cuda")
+    r0 = search(seg)
+    for K_, pl in ((1, "hot-replicated"), (2, "hot-replicated"),
+                   (4, "hot-replicated"), (2, "replicated"),
+                   (4, "replicated")):
+        s = shard(K_, pl)
+        same_base(s, seg, f"8b K {K_} {pl}")
+        got = search(s)
+        if pl == "replicated":
+            matrix[f"base/K={K_}/{pl}"] = dict(
+                ids="equal", max_abs_err=within_bound(got, r0, s,
+                                                      f"8b K {K_} {pl}"))
+        else:
+            same(got, r0, f"8b K {K_} {pl}")
+            matrix[f"base/K={K_}/{pl}"] = "bit-equal"
+        if K_ == 4 and pl == "hot-replicated":
+            sh4 = s
+    for dt in ("int8", "pq"):
+        cq = IndexConfig(build_method=cfg.build_method, seed=cfg.seed,
+                         pilot_dtype=dt)
+        sq = SegmentedIndex(cq, x, device="cuda")
+        s = shard(2, c=cq)
+        same_base(s, sq, f"8b {dt}")
+        same(search(s), search(sq), f"8b {dt} K 2")
+        matrix[f"{dt}/K=2"] = "bit-equal"
+        del sq, s
+    # inserts, deletes and compact at K 4, against the same mutations on
+    # the single-device index
+    rng = np.random.default_rng(args.seed + 11)
+    dele = np.concatenate([rng.choice(args.parity_n, 250, replace=False),
+                           args.parity_n + rng.choice(hold, 250,
+                                                      replace=False)])
+    for idx in (seg, sh4):
+        for s0 in range(0, hold, 250):
+            idx.insert(extra[s0:s0 + 250])
+    check(sorted({d.shard for d in sh4.deltas}) == [0, 1, 2, 3],
+          "8b: the inserts did not go round-robin over the shards")
+    same(search(sh4), search(seg), "8b K 4 after inserts")
+    for idx in (seg, sh4):
+        idx.delete(dele)
+    got = search(sh4)
+    same(got, search(seg), "8b K 4 after deletes")
+    check(not np.isin(got[0], dele).any(), "8b: a deleted gid came back")
+    for idx in (seg, sh4):
+        idx.compact()
+    same_base(sh4, seg, "8b after compact")
+    same(search(sh4), search(seg), "8b K 4 after compact")
+    matrix["mutated/K=4"] = matrix["compacted/K=4"] = "bit-equal"
+    del seg, sh4
+    # the engine (depth 2, donate) with interleaved upserts and deletes,
+    # against the engine over a SegmentedIndex
+    sp = ServeParams(depth=2, donate=True, mutations_per_pump=256)
+
+    def drive(eng):
+        t1 = eng.submit_upsert(extra[:500])
+        a = eng.serve(pq_[:128])
+        eng.flush_mutations()
+        eng.submit_upsert(extra[500:])
+        eng.submit_delete(np.concatenate([t1.gids[:50], dele[:50]]))
+        eng.flush_mutations()
+        b = eng.serve(pq_[128:])
+        return a, b
+    segE = SegmentedIndex(cfg, x, device="cuda")
+    want = drive(ThroughputEngine(segE, params, sp))
+    engines = {}
+    for K_ in (2, 4):
+        s = shard(K_)
+        same_base(s, segE, f"8b engine K {K_}")
+        eng = ThroughputEngine(s, params, sp)
+        got = drive(eng)
+        for g, w in zip(got, want):
+            same(g[:2], w[:2], f"8b engine K {K_}")
+        check(eng.stats["upserts"] == hold and eng.stats["stage_rebuilds"]
+              == 0, f"8b engine K {K_}: {eng.stats['upserts']} upserts")
+        matrix[f"engine/K={K_}"] = "bit-equal"
+        engines[K_] = (s, eng)
+    # a dead shard (K 4, after the engine's mutations): the overlay equals
+    # the deleted-rows oracle (the same rows, and the dead shard's delta
+    # rows, deleted from the single-device index), then heals to the
+    # healthy bits
+    s4, eng4 = engines[4]
+    healthy = search(s4)
+    dead = 1
+    frac = s4.set_dead_shards({dead})
+    rows = np.flatnonzero(s4._dead_base_rows())
+    gone = np.concatenate([s4._base_gids[rows]] + [
+        d.gids[:d.m] for d in s4.deltas if d.shard == dead])
+    segE.delete(gone)
+    same(search(s4), search(segE), "8b failover vs the deleted-rows oracle")
+    check(0.0 < frac < 1.0, f"8b: degraded coverage {frac}")
+    s4.set_dead_shards(())
+    same(search(s4), healthy, "8b heal")
+    matrix["degraded/K=4"] = dict(coverage=frac, oracle="bit-equal",
+                                  heal="bit-equal")
+    del engines, s4, eng4, segE
+    out["8b"] = dict(n=args.parity_n, matrix=matrix,
+                     seconds=time.perf_counter() - t_b)
+    print(f"[pod] 8b parity matrix at n={args.parity_n}: "
+          f"{json.dumps(out['8b'])} ({stamp()})", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=FULL_N)
@@ -2066,6 +2360,10 @@ def main() -> int:
                             results["search"][1])
     print(f"[serve] {card} | " + json.dumps(serve_out, default=str),
           flush=True)
+
+    # ---- 8. pod: the sharded index and engine ------------------------------
+    pod_out = pod_phase(torch, np, args, cfg, ds, counts)
+    print(f"[pod] {card} | " + json.dumps(pod_out, default=str), flush=True)
 
     # each kernel's launches on the first path that must launch it (K7 on
     # the build, K1 and K3 on ``search``, K2 on the per-hop path; K6 on

@@ -153,7 +153,8 @@ def hierarchical_entries(arrays: Dict[str, torch.Tensor],
 
 def refine_stage(arrays: Dict[str, torch.Tensor], params: SearchParams,
                  queries: torch.Tensor, cand_id: torch.Tensor,
-                 cand_dp: torch.Tensor, visited: torch.Tensor = None
+                 cand_dp: torch.Tensor, visited: torch.Tensor = None, *,
+                 dist_full_fn=None, dist_res_fn=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stage ②: exact re-rank of the pilot beam, then a bounded traversal
     on the compact subgraph with FULL vectors (neighbours from the compact
@@ -165,7 +166,15 @@ def refine_stage(arrays: Dict[str, torch.Tensor], params: SearchParams,
 
     Returns ``(seed_id, seed_d, refine_dist)``: the refined beam mapped back
     to FULL ids + its exact distances (stage ③'s seed), and the per-query
-    distance-computation count."""
+    distance-computation count.
+
+    Pod sharding: ``dist_full_fn(queries, full_ids)`` and
+    ``dist_res_fn(q_residual, full_ids)`` replace the gathers from
+    ``rot_vecs`` (the exact re-rank of a quantized pilot and the bounded
+    traversal) and from ``residual`` (the fp32 pilot's re-score) with
+    scoring by the shards that own the rows.  They must be exact: they
+    replace a gather + ``sq_dists``, not an approximation of it.  Both
+    default to the gathers."""
     nk = arrays["pilot_to_full"].shape[0] - 1
     ptf = arrays["pilot_to_full"].long()
     Bq = queries.shape[0]
@@ -174,17 +183,20 @@ def refine_stage(arrays: Dict[str, torch.Tensor], params: SearchParams,
         cand_id = T.sentinel_mask(ptomb, cand_id, nk)
     valid = cand_id < nk
     cand_full = ptf[cand_id.long()]
+    if dist_full_fn is None:
+        dist_full_fn = lambda qs, ids: T.sq_dists(qs, arrays["rot_vecs"][ids])
+    if dist_res_fn is None:
+        dist_res_fn = lambda qs, ids: T.sq_dists(qs, arrays["residual"][ids])
     if arrays["primary"].dtype != torch.float32:   # quantized: exact re-score
-        d_full = torch.where(
-            valid, T.sq_dists(queries, arrays["rot_vecs"][cand_full]), INF)
+        d_full = torch.where(valid, dist_full_fn(queries, cand_full), INF)
     else:                                          # exact: SVD identity
         qr = queries[:, arrays["primary"].shape[1]:]
-        d_res = T.sq_dists(qr, arrays["residual"][cand_full])
+        d_res = dist_res_fn(qr, cand_full)
         d_full = torch.where(valid, cand_dp + d_res, INF)
     n_rerank = valid.sum(1, dtype=torch.int32)
 
     def dist2(qs, ids, fresh):
-        return T.sq_dists(qs, arrays["rot_vecs"][ptf[ids.long()]])
+        return dist_full_fn(qs, ptf[ids.long()])
     spec2 = T.TraversalSpec(ef=params.ef, visited_mode=params.visited_mode,
                             bloom_bits=params.bloom_bits,
                             frontier_width=params.frontier_width)

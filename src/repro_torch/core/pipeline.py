@@ -110,19 +110,39 @@ def pilot_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
 def cpu_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
                 queries: torch.Tensor, cand_id: torch.Tensor,
                 cand_dp: torch.Tensor, visited: torch.Tensor,
-                *tombs: torch.Tensor) -> T.Program:
+                *tombs: torch.Tensor, hooks=None) -> T.Program:
     """Stages ② and ③ from a pilot boundary: ``(ids, dists)``.  ``tombs``:
-    ``()`` or ``(pilot_tomb, tomb)``."""
+    ``()`` or ``(pilot_tomb, tomb)``.
+
+    ``hooks`` (a ``distributed.ShardHooks``: the pod-sharded stage pair)
+    scores the cold rows through the shards that own them: ``dist_full`` /
+    ``dist_res`` replace ``refine_stage``'s gathers from ``rot_vecs`` /
+    ``residual``, and stage ③ reads its neighbour rows through ``nbr`` and
+    scores them through ``dist_full``.  The hooks answer for their own rows,
+    so stage ③ sentinel-masks the rows ``nbr`` returns (value-wise, which
+    equals gathering from the masked table).  ``arrays``' cold keys are then
+    read only at the sentinel entries, which are masked."""
     arrays = _with_tombs(arrays, tombs)
-    n = arrays["rot_vecs"].shape[0] - 1
+    tomb = arrays.get("tombstone")
+    if hooks is None:
+        n = arrays["rot_vecs"].shape[0] - 1
+        dist_full = dist_res = nbr3 = None
+    else:
+        n = hooks.n
+        dist_full, dist_res = hooks.dist_full, hooks.dist_res
+        nbr3 = hooks.nbr if tomb is None else (
+            lambda u: T.sentinel_mask(tomb, hooks.nbr(u), n))
     seed_id, seed_d, _ = refine_stage(arrays, params, queries, cand_id,
-                                      cand_dp, visited=visited)
+                                      cand_dp, visited=visited,
+                                      dist_full_fn=dist_full,
+                                      dist_res_fn=dist_res)
     st3 = yield from T.greedy_program(
         final_spec(params), queries, arrays["full_neighbors"],
         arrays["rot_vecs"], n,
         entry_ids=torch.full((queries.shape[0], 1), n, dtype=torch.int32,
                              device=queries.device),
-        extra_id=seed_id, extra_d=seed_d, tombstone=arrays.get("tombstone"))
+        extra_id=seed_id, extra_d=seed_d, nbr_fn=nbr3, dist_fn=dist_full,
+        tombstone=tomb)
     return T.topk_from_state(st3, params.k)
 
 
@@ -130,19 +150,6 @@ def is_consumed(t: torch.Tensor) -> bool:
     """Whether a donated stage boundary tensor was consumed by
     ``cpu_stages`` (the counterpart of ``jax.Array.is_deleted``)."""
     return getattr(t, "_consumed", False)
-
-
-def _tombs(tombs, want: int) -> list:
-    """The trailing bitmaps of a stage call: none, or exactly ``want``
-    1-D bool tensors."""
-    if len(tombs) not in (0, want):
-        raise TypeError(f"expected 0 or {want} trailing tombstone bitmaps, "
-                        f"got {len(tombs)}")
-    for t in tombs:
-        if t.dtype != torch.bool or t.dim() != 1:
-            raise ValueError(f"a tombstone bitmap is a 1-D bool tensor, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    return list(tombs)
 
 
 def _pad(x: torch.Tensor, rows: int, value) -> torch.Tensor:
@@ -155,61 +162,75 @@ def _pad(x: torch.Tensor, rows: int, value) -> torch.Tensor:
 class _Stages:
     """The stage pair, each stage compiled per bucket:
     ``pilot(queries) -> (cand_id, cand_d, visited)`` and
-    ``cpu(queries, cand_id, cand_d, visited) -> (ids, dists)``."""
+    ``cpu(queries, cand_id, cand_d, visited) -> (ids, dists)``.
 
-    def __init__(self, arrays: Dict[str, torch.Tensor], params: SearchParams):
-        self.arrays, self.params = dict(arrays), params
+    ``donate=True`` (module docstring): the same interface and results,
+    the boundary use-once and the visited storage pooled per batch size."""
+
+    #: the trailing bitmaps may be left out (the immutable programs)
+    tombs_optional = True
+
+    def __init__(self, arrays: Dict[str, torch.Tensor], params: SearchParams,
+                 *, donate: bool = False):
+        self.arrays, self.params, self.donate = dict(arrays), params, donate
         self.nk = arrays["pilot_to_full"].shape[0] - 1
-        self._fns: Dict[Tuple[str, int], object] = {}
+        self._fns: Dict[tuple, object] = {}
+        self._pool: Dict[int, List[torch.Tensor]] = {}
+        self._kernel = (params.use_pallas_traversal or
+                        params.use_persistent_traversal)
+        self.eager = False          # compile_program's choice by device
 
-    def _call(self, program, inputs, fills, tombs) -> List[torch.Tensor]:
-        """``program`` on ``inputs`` padded to their bucket (rows of
-        ``fills``) and the bitmaps ``tombs``, compiled at first use;
-        outputs sliced back, as views of what the next call overwrites on
-        the card."""
+    def _tombs(self, tombs, want: int) -> list:
+        """The trailing bitmaps of a stage call: ``want`` 1-D bool tensors
+        (or none, where the stages may run unmasked)."""
+        if len(tombs) != want and not (self.tombs_optional and not tombs):
+            raise TypeError(
+                f"expected {'0 or ' if self.tombs_optional else ''}{want} "
+                f"trailing tombstone bitmaps, got {len(tombs)}")
+        for t in tombs:
+            if t.dtype != torch.bool or t.dim() != 1:
+                raise ValueError(f"a tombstone bitmap is a 1-D bool tensor, "
+                                 f"got {tuple(t.shape)} {t.dtype}")
+        return list(tombs)
+
+    def _call(self, program, inputs, fills, tombs, arrays=None
+              ) -> List[torch.Tensor]:
+        """``program`` over ``arrays`` (default: the pair's) on ``inputs``
+        padded to their bucket (rows of ``fills``) and the bitmaps
+        ``tombs``, compiled at first use per (program, bucket, bitmaps,
+        device); outputs sliced back, as views of what the next call of
+        that program overwrites on the card."""
         B = inputs[0].shape[0]
         rows = bucket_size(B)
         inputs = [_pad(x, rows, v) for x, v in zip(inputs, fills)]
         inputs += tombs
-        key = (program.__name__, rows, len(tombs))
+        key = (program, rows, len(tombs), inputs[0].device)
         if key not in self._fns:
-            self._fns[key] = compiled.compile_program(
-                partial(program, self.arrays, self.params), inputs)
+            fn = partial(program, self.arrays if arrays is None else arrays,
+                         self.params)
+            self._fns[key] = (compiled.EagerProgram(fn) if self.eager
+                              else compiled.compile_program(fn, inputs))
         return [t[:B] for t in self._fns[key](*inputs)]
 
-    def pilot(self, queries: torch.Tensor, *tombs: torch.Tensor):
-        return tuple(t.clone() for t in self._call(
-            pilot_program, [queries], [0.0], _tombs(tombs, 1)))
+    def _pilot(self, queries, tombs) -> List[torch.Tensor]:
+        return self._call(pilot_program, [queries], [0.0], tombs)
 
-    def cpu(self, queries: torch.Tensor, cand_id: torch.Tensor,
-            cand_dp: torch.Tensor, visited: torch.Tensor,
-            *tombs: torch.Tensor):
-        ids, dists = self._call(cpu_program,
-                                [queries, cand_id, cand_dp, visited],
-                                [0.0, self.nk, INF, False], _tombs(tombs, 2))
-        return ids.clone(), dists.clone()
-
-
-class _DonatedStages(_Stages):
-    """The donated variant (module docstring): the same interface and
-    results, the boundary use-once and the visited storage pooled."""
-
-    def __init__(self, arrays: Dict[str, torch.Tensor], params: SearchParams):
-        super().__init__(arrays, params)
-        self._pool: Dict[int, List[torch.Tensor]] = {}
-        self._kernel = (params.use_pallas_traversal or
-                        params.use_persistent_traversal)
+    def _cpu(self, queries, boundary, tombs) -> List[torch.Tensor]:
+        return self._call(cpu_program, [queries, *boundary],
+                          [0.0, self.nk, INF, False], tombs)
 
     def pilot(self, queries: torch.Tensor, *tombs: torch.Tensor):
+        tombs = self._tombs(tombs, 1)
         Bq = queries.shape[0]
-        if self._kernel and Bq % 8 != 0:
+        if self.donate and self._kernel and Bq % 8 != 0:
             raise ValueError(
                 f"donated split_stages needs sublane-aligned batches (a "
                 f"multiple of 8, as every rung of the bucket ladder is) with "
                 f"the kernel stage-① paths (got B={Bq}); pad with "
                 f"multistage.pad_to_bucket first")
-        cand_id, cand_d, visited = self._call(pilot_program, [queries], [0.0],
-                                              _tombs(tombs, 1))
+        cand_id, cand_d, visited = self._pilot(queries, tombs)
+        if not self.donate:
+            return cand_id.clone(), cand_d.clone(), visited.clone()
         pool = self._pool.get(Bq)
         buf = pool.pop() if pool else visited_buffer(self.params, Bq,
                                                      self.nk, queries.device)
@@ -219,17 +240,128 @@ class _DonatedStages(_Stages):
     def cpu(self, queries: torch.Tensor, cand_id: torch.Tensor,
             cand_dp: torch.Tensor, visited: torch.Tensor,
             *tombs: torch.Tensor):
+        tombs = self._tombs(tombs, 2)
         boundary = (cand_id, cand_dp, visited)
-        if any(is_consumed(t) for t in boundary):
+        if self.donate and any(is_consumed(t) for t in boundary):
             raise RuntimeError("this stage boundary was donated to an "
                                "earlier cpu_stages call and is consumed")
-        out = super().cpu(queries, *boundary, *tombs)
-        for t in boundary:
-            t._consumed = True
-        # the storage goes back to the pool as a new tensor object (the
-        # caller's, marked consumed, keeps pointing at it)
-        self._pool.setdefault(queries.shape[0], []).append(visited.detach())
+        ids, dists = self._cpu(queries, boundary, tombs)
+        out = ids.clone(), dists.clone()
+        if self.donate:
+            for t in boundary:
+                t._consumed = True
+            # the storage goes back to the pool as a new tensor object (the
+            # caller's, marked consumed, keeps pointing at it)
+            self._pool.setdefault(queries.shape[0], []).append(
+                visited.detach())
         return out
+
+
+class _ShardedStages(_Stages):
+    """The pod-sharded stage pair: the same ``pilot(queries, pilot_tomb)``
+    / ``cpu(queries, cand_id, cand_d, visited, pilot_tomb, tomb)``
+    interface, over ``shards`` (each key a tuple of per-shard tensors, in
+    ``shard_ctx``'s device order, as ``distributed.ShardedSegmentedIndex``
+    lays them out).  The bitmaps are REQUIRED trailing arguments (a sharded
+    serving index is mutable by construction).  One controller runs every
+    shard's part, each on its shard's device.
+
+    Placement (``shard_ctx.placement``):
+      * ``hot-replicated`` — the hot tables are replicated, the cold ones
+        (``distributed.COLD_KEYS``) row-sharded.  Stage 0 and stage ① are
+        replicated data and replicated compute, so they run once a batch on
+        the primary device (shard 0's; on the card K3–K5 and K1 or K2, as
+        in the unsharded pair): their results are what every shard would
+        compute.  Stages ②③ score the cold rows through
+        ``distributed.shard_local_dist_fn`` / ``shard_local_nbr_fn``: each
+        shard answers from its own slice, and the owner's value is
+        selected (bit-exact, ``distributed.owner_select``).
+      * ``replicated`` — every table replicated, the query batch split into
+        ``n_shards`` equal slices, one per shard device (the batch must
+        divide by the shard count; the bucket ladder's multiples-of-8 rungs
+        do for <= 8 shards).  Each slice runs the unsharded programs at its
+        own row count, which on the card may move distance bits (another
+        bucket), never ids.
+
+    The true corpus size is ``shard_ctx.n``: the cold tables are row-padded
+    to ``n_shards * rows_per``.  Compilation: a layout whose shards all
+    live on the primary device (the queries' device) compiles each program
+    per bucket with ``compiled.compile_program`` — CUDA graphs on the card,
+    the hooks recorded with the rest, as they keep static shapes.  A layout
+    that spans several devices runs the same programs eagerly
+    (``compiled.EagerProgram``).  The layout makes that choice here, once.
+    Donation: as ``_Stages``."""
+
+    tombs_optional = False
+
+    def __init__(self, shards: Dict[str, tuple], params: SearchParams,
+                 ctx, *, donate: bool = False):
+        from repro_torch.core import distributed as DI
+
+        self.ctx = ctx
+        self.devices = list(ctx.mesh.devices.ravel())
+        primary = self.devices[0]
+        self.hot_repl = ctx.placement == "hot-replicated"
+        # replica (or shard slice) s of every table, in shard order
+        self.replicas = [{k: v[s] for k, v in shards.items()}
+                         for s in range(ctx.n_shards)]
+        arrays = dict(self.replicas[0])
+        self.hooks = None
+        if self.hot_repl:
+            self.hooks = DI.ShardHooks(
+                n=ctx.n,
+                nbr=DI.shard_local_nbr_fn(shards["full_neighbors"],
+                                          ctx.rows_per),
+                dist_full=DI.shard_local_dist_fn(shards["rot_vecs"],
+                                                 ctx.rows_per),
+                dist_res=DI.shard_local_dist_fn(shards["residual"],
+                                                ctx.rows_per))
+            # the cold keys' stand-ins: the sentinel row broadcast to the
+            # table's shape (read only at masked sentinel entries)
+            for key in DI.COLD_KEYS:
+                row = shards[key][0][-1:]
+                fill = ctx.n if key == "full_neighbors" else 0
+                arrays[key] = torch.full_like(row, fill).to(primary).expand(
+                    ctx.n + 1, row.shape[1])
+            self._cpu_program = partial(cpu_program, hooks=self.hooks)
+        super().__init__(arrays, params, donate=donate)
+        self.eager = any(d != primary for d in self.devices)
+
+    def _check_batch(self, Bq: int) -> None:
+        if not self.hot_repl and Bq % self.ctx.n_shards != 0:
+            raise ValueError(
+                f"'replicated' placement shards the query batch: B={Bq} "
+                f"must divide by n_shards={self.ctx.n_shards} (bucket-pad "
+                f"with multistage.pad_to_bucket first)")
+
+    def _per_shard(self, program, inputs, fills, tombs):
+        """``replicated``: shard s runs ``program`` on slice s of every
+        input, on its device over its replica; the slices' outputs are
+        joined on the primary device."""
+        m = inputs[0].shape[0] // self.ctx.n_shards
+        outs = []
+        for s, dev in enumerate(self.devices):
+            part = [x[s * m:(s + 1) * m].to(dev) for x in inputs]
+            got = self._call(program, part, fills, [t.to(dev) for t in tombs],
+                             arrays=self.replicas[s])
+            # a copy before the next shard's call overwrites the outputs
+            outs.append([t.clone().to(self.devices[0]) for t in got])
+        return [torch.cat(parts) for parts in zip(*outs)]
+
+    def _pilot(self, queries, tombs):
+        self._check_batch(queries.shape[0])
+        if self.hot_repl:
+            return super()._pilot(queries, tombs)
+        return self._per_shard(pilot_program, [queries], [0.0], tombs)
+
+    def _cpu(self, queries, boundary, tombs):
+        self._check_batch(queries.shape[0])
+        fills = [0.0, self.nk, INF, False]
+        if self.hot_repl:
+            return self._call(self._cpu_program, [queries, *boundary], fills,
+                              tombs)
+        return self._per_shard(cpu_program, [queries, *boundary], fills,
+                               tombs)
 
 
 def split_stages(arrays: Dict[str, torch.Tensor], params: SearchParams,
@@ -249,14 +381,18 @@ def split_stages(arrays: Dict[str, torch.Tensor], params: SearchParams,
     The deletion bitmaps of a mutable index (``core/segments.py``) are the
     optional trailing arguments, as in the reference: given, they are read
     at every call (a delete needs no new capture); omitted, the programs
-    carry no masking.  ``shard_ctx`` (the pod-sharded stage pair) needs
-    ``core/distributed.py``, ROADMAP Queue A item 5, and raises until
-    then."""
+    carry no masking.
+
+    ``shard_ctx`` (a ``distributed.ShardContext``) selects the pod-sharded
+    pair (``_ShardedStages``) over ``arrays`` laid out per shard (each key
+    a tuple of per-shard tensors, ``ShardedSegmentedIndex._shard_arrays``):
+    results bit-identical to the unsharded pair at every shard count (the
+    ``replicated`` placement: ids, distances within the fp32 bound on the
+    card), and the bitmaps become REQUIRED trailing arguments."""
     if shard_ctx is not None:
-        raise NotImplementedError(
-            "sharded split_stages (shard_ctx) needs core/distributed.py, "
-            "not ported yet: ROADMAP Queue A item 5")
-    stages = (_DonatedStages if donate else _Stages)(arrays, params)
+        stages = _ShardedStages(arrays, params, shard_ctx, donate=donate)
+    else:
+        stages = _Stages(arrays, params, donate=donate)
     return stages.pilot, stages.cpu
 
 

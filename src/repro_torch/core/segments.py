@@ -31,9 +31,10 @@ compiled per (bucket, params, k) on its segment like the base's
 (``core/compiled.py``: CUDA graphs on the card); ``DeltaSegment.refresh``
 writes its tensors in place while their shapes hold, so only a capacity
 doubling or an FES shape change captures again — the counterpart of the
-reference's "jit signatures churn only O(log inserts) times".  The
-reference's per-segment device placement (pod sharding) waits for
-``core/distributed.py`` (ROADMAP Queue A item 5).
+reference's "jit signatures churn only O(log inserts) times".  A delta
+segment may live on another device than the base (``_new_delta``; the pod
+layer ``core/distributed.py`` places each on its owning shard's device):
+its queries go to it and its top-k comes back to the host merge.
 """
 
 from __future__ import annotations
@@ -450,11 +451,15 @@ class SegmentedIndex:
         return count
 
     # -- insert ------------------------------------------------------------
+    def _new_delta(self, device) -> DeltaSegment:
+        """An empty delta segment whose tensors live on ``device``."""
+        return DeltaSegment(self.d, self.base.reducer.d_primary,
+                            self.base.cfg.R, max(self.up.delta_capacity, 8),
+                            device=device)
+
     def _ensure_delta(self, need: int) -> DeltaSegment:
         if not self.deltas:
-            self.deltas.append(DeltaSegment(
-                self.d, self.base.reducer.d_primary, self.base.cfg.R,
-                max(self.up.delta_capacity, 8), device=self.device))
+            self.deltas.append(self._new_delta(self.device))
         seg = self.deltas[-1]
         seg.grow(need)
         return seg
@@ -489,7 +494,7 @@ class SegmentedIndex:
         cd = np.full((b, 3 * kk), np.inf, np.float32)
         cv = np.zeros((b, 3 * kk, self.d), np.float32)
         cok = np.zeros((b, 3 * kk), bool)
-        q, _ = pad_to_bucket(torch.from_numpy(rot).to(self.device),
+        q, _ = pad_to_bucket(torch.from_numpy(rot).to(seg.device),
                              self.base.batch_buckets)
         live = seg.live_count()
         if live:
@@ -696,7 +701,7 @@ class SegmentedIndex:
         ``brute_threshold`` live rows, the compiled pilot-graph traversal
         + exact re-score above it.  Returns local ids, exact distances and
         the per-query scored count."""
-        q_rot, B0 = pad_to_bucket(q_rot)
+        q_rot, B0 = pad_to_bucket(q_rot.to(seg.device))
         k_eff = max(1, min(k, seg.cap))
         if seg.live_count() <= self.up.brute_threshold:
             ids, dd = _delta_brute_topk(q_rot, seg.arrays["rot_vecs"][:-1],
@@ -707,11 +712,16 @@ class SegmentedIndex:
         return (ids[:B0].cpu().numpy(), dd[:B0].cpu().numpy(),
                 cnt[:B0].cpu().numpy())
 
+    def _live_deltas(self) -> List[DeltaSegment]:
+        """The delta segments a search merges: all of them here; the pod
+        layer leaves out those of dead shards (``core/distributed.py``)."""
+        return self.deltas
+
     def merge_with_deltas(self, q_rot: torch.Tensor, base_ids: np.ndarray,
                           base_d: np.ndarray, k: int, params: SearchParams
                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Exact cross-segment beam merge: base results (positional ids)
-        map to global ids, each live delta adds its top-k, anything
+        map to global ids, each of ``_live_deltas`` adds its top-k, anything
         tombstoned *since dispatch* is dropped, and the union is sorted by
         ``merge_topk``'s canonical order.  Returns (gids (B, k), dists
         (B, k), delta-scored counts (B,)); short rows pad with gid -1 /
@@ -725,7 +735,7 @@ class SegmentedIndex:
         all_d = [np.where(ok, base_d, np.inf)]
         Bq = base_ids.shape[0]
         scored = np.zeros(Bq, np.int32)
-        for seg in self.deltas:
+        for seg in self._live_deltas():
             if seg.live_count() == 0:
                 continue
             lids, ld, cnt = self._delta_topk(q_rot, seg, k, params)

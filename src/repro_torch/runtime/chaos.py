@@ -32,7 +32,8 @@ Supported fault kinds (the engine's reaction in parentheses):
 
 ``tests/test_torch_resilience.py`` drives the port's engine through these,
 as ``tests/test_resilience.py`` drives the reference's; the shard faults
-wait for the sharded index (ROADMAP Queue A item 5).
+stall the heartbeats of a ``core/distributed.ShardedSegmentedIndex``'s
+shards.
 """
 
 from __future__ import annotations

@@ -34,9 +34,14 @@
    taken per batch when the rolling p99 threatens ``p99_budget_s``, and
    ``RestartPolicy``-backed mutation retries (idempotent by
    ``MutationTicket.seq``); ``runtime/chaos.py`` injects faults at the
-   decision points.  Shard heartbeats and failover belong to the sharded
-   index, which waits for ROADMAP Queue A item 5: an engine over one
-   raises ``NotImplementedError``.
+   decision points.
+7. **Pod-sharded serving** — over a ``core/distributed.
+   ShardedSegmentedIndex`` the stage pair is the index's sharded pair
+   (``stage_pair``, the bitmaps from ``shard_tombs()``), upserts ride one
+   queue per shard (round-robin, deletes routed by ``shard_of_gids``) and
+   drain in global submission order, and a ``HeartbeatMonitor`` per shard
+   fails a quiet shard over to the tombstone overlay
+   (``set_dead_shards``) and heals it when its beats resume.
 
 Every request ends in exactly one terminal state (``completed``,
 ``rejected`` or ``expired``).  Results are the stage pair's, which equal
@@ -56,6 +61,7 @@ import torch
 
 from repro_torch.core import multistage
 from repro_torch.core.multistage import SearchParams
+from repro_torch.core.distributed import ShardedSegmentedIndex
 from repro_torch.core.pipeline import degrade_params, split_stages
 from repro_torch.core.segments import SegmentedIndex
 from repro_torch.runtime.chaos import ChaosError
@@ -95,7 +101,7 @@ class ServeParams:
     p99_budget_s: Optional[float] = None
     degrade_ef_scale: float = 0.5
     slo_window: int = 64
-    # shard liveness (sharded index only, ROADMAP Queue A item 5)
+    # shard liveness (sharded index only)
     heartbeat_timeout_s: float = 1.0
     # mutation fault tolerance: RestartPolicy retry budget + base backoff
     mutation_max_retries: int = 3
@@ -108,7 +114,8 @@ class MutationTicket:
     between pump batches (or, after the retry budget, surfaced as
     ``failed`` with ``error``); for inserts ``gids`` then carries the
     assigned global ids.  ``seq`` is the global submission order, which the
-    drain preserves; ``shard`` is always 0 on a single-device index."""
+    drain preserves; ``shard`` is the upsert queue it rides (always 0 on a
+    single-device index)."""
     kind: str                         # "insert" | "delete"
     payload: Any
     done: bool = False
@@ -120,13 +127,9 @@ class MutationTicket:
     error: Optional[str] = None
 
 
-def _is_sharded(index) -> bool:
-    return type(index).__name__ == "ShardedSegmentedIndex"
-
-
 class ThroughputEngine:
-    """Continuous-batching serving runtime over a ``PilotANNIndex`` or a
-    ``SegmentedIndex``.
+    """Continuous-batching serving runtime over a ``PilotANNIndex``, a
+    ``SegmentedIndex`` or a ``ShardedSegmentedIndex``.
 
     Either the offline driver ``serve(queries, arrival_times)`` (replays an
     arrival process, returns per-request results + serving stats) or the
@@ -137,10 +140,6 @@ class ThroughputEngine:
                  serve_params: Optional[ServeParams] = None, *,
                  clock: Optional[Callable[[], float]] = None,
                  fault_injector=None):
-        if _is_sharded(index):
-            raise NotImplementedError(
-                "serving a ShardedSegmentedIndex needs core/distributed.py, "
-                "not ported yet: ROADMAP Queue A item 5")
         self.index = index
         # an injected clock (runtime.chaos.SimClock) puts the queue, expiry
         # and batch timestamps on one deterministic timeline; a
@@ -149,6 +148,11 @@ class ThroughputEngine:
         self._fault_injector = fault_injector
         self.segments: Optional[SegmentedIndex] = \
             index if isinstance(index, SegmentedIndex) else None
+        # a ShardedSegmentedIndex is a SegmentedIndex, so the mutable
+        # plumbing applies; the stage pair and the mutation routing
+        # specialise below
+        self.sharded: Optional[ShardedSegmentedIndex] = \
+            index if isinstance(index, ShardedSegmentedIndex) else None
         self.params = params
         self.serve_params = serve_params or ServeParams()
         sp = self.serve_params
@@ -168,8 +172,14 @@ class ThroughputEngine:
         self.queue = BatchingQueue(sp.buckets[-1], max_wait_s=sp.max_wait_s,
                                    clock=qclock,
                                    max_pending=sp.max_pending)
-        # shard liveness belongs to the sharded index (Queue A item 5)
+        # shard liveness: one heartbeat per shard; a shard quiet past the
+        # timeout is declared dead and the index fails over to the
+        # tombstone overlay
         self.heartbeats: Optional[HeartbeatMonitor] = None
+        if self.sharded is not None:
+            self.heartbeats = HeartbeatMonitor(
+                [f"shard:{i}" for i in range(self.sharded.sp.n_shards)],
+                timeout_s=sp.heartbeat_timeout_s, clock=qclock)
         # rolling SLO telemetry: recent completed-request latencies (queue
         # clock) and batch service times drive ``_should_degrade``
         self._lat_window: Deque[float] = deque(maxlen=max(8, sp.slo_window))
@@ -184,13 +194,19 @@ class ThroughputEngine:
         # outputs, event after the pilot stage or None, dispatch timestamp,
         # earliest deadline, degraded rung?)
         self._inflight: List[Tuple] = []
-        self._mut_queues: List[Deque[MutationTicket]] = [deque()]
+        # one upsert queue per shard (one on a single device); ``seq``
+        # keeps the global submission order across them
+        nq = self.sharded.sp.n_shards if self.sharded is not None else 1
+        self._mut_queues: List[Deque[MutationTicket]] = [
+            deque() for _ in range(nq)]
         self._mut_seq = 0
+        self._rr_shard = 0
         self._mut_restart = [RestartPolicy(
             max_restarts=sp.mutation_max_retries,
             base_backoff_s=sp.mutation_backoff_s,
-            max_backoff_s=max(sp.mutation_backoff_s, 1e-9) * 64)]
-        self._mut_not_before = [0.0]
+            max_backoff_s=max(sp.mutation_backoff_s, 1e-9) * 64)
+            for _ in range(nq)]
+        self._mut_not_before = [0.0] * nq
         self._t0 = time.perf_counter()
         self._completions: Dict[int, float] = {}      # rid -> done timestamp
         self.stats: Dict[str, Any] = {
@@ -212,7 +228,9 @@ class ThroughputEngine:
         its arrays; a ``SegmentedIndex`` base's stages take the deletion
         bitmaps as trailing arguments, read at every call — a delete
         applies with no new capture, and only a ``compact()`` (generation
-        bump, seen at dispatch and in the mutation drain) rebuilds."""
+        bump, seen at dispatch and in the mutation drain) rebuilds.  A
+        ``ShardedSegmentedIndex`` gives its own cached sharded pair, called
+        with ``shard_tombs()`` (the dead-shard overlay while degraded)."""
         sp = self.serve_params
         self._degraded_params: Optional[SearchParams] = None
         self._pilot_lo = self._cpu_lo = None
@@ -225,6 +243,19 @@ class ThroughputEngine:
             pair = split_stages(arrays, params, donate=sp.donate)
             self._stage_sets.append(pair[0].__self__)
             return pair
+        if self.sharded is not None:
+            sh = self.sharded
+
+            def sharded(params):
+                pilot, cpu = sh.stage_pair(params, donate=sp.donate)
+                self._stage_sets.append(pilot.__self__)
+                return (lambda q: pilot(q, sh.shard_tombs()[0]),
+                        lambda q, *po: cpu(q, *po, *sh.shard_tombs()))
+            self._pilot_call, self._cpu_call = sharded(self.params)
+            if self._degraded_params is not None:
+                self._pilot_lo, self._cpu_lo = sharded(self._degraded_params)
+            self._generation = sh.generation
+            return
         if self.segments is None:
             self._pilot_call, self._cpu_call = stages(self.index.arrays,
                                                       self.params)
@@ -291,27 +322,39 @@ class ThroughputEngine:
                       shard: Optional[int] = None) -> MutationTicket:
         """Queue vectors for insertion into the segmented index, applied
         between pump batches (``mutations_per_pump`` rows at a time); the
-        ticket's ``gids`` fills in when it lands."""
+        ticket's ``gids`` fills in when it lands.  On a sharded index the
+        batch rides the upsert queue of ``shard`` (round-robin when None)
+        and lands in that shard's delta segment."""
         if self.segments is None:
             raise ValueError("streaming upserts need a SegmentedIndex "
                              "(core/segments.py); this engine serves an "
                              "immutable PilotANNIndex")
-        if shard not in (None, 0):
-            raise ValueError(f"shard {shard} out of range [0, 1)")
+        nq = len(self._mut_queues)
+        if shard is not None and not 0 <= shard < nq:
+            raise ValueError(f"shard {shard} out of range [0, {nq})")
+        if shard is None:
+            shard = self._rr_shard
+            self._rr_shard = (self._rr_shard + 1) % nq
         vectors = np.atleast_2d(np.asarray(vectors, np.float32))
-        t = MutationTicket("insert", vectors, seq=self._mut_seq)
+        t = MutationTicket("insert", vectors, shard=shard, seq=self._mut_seq)
         self._mut_seq += 1
-        self._mut_queues[0].append(t)
+        self._mut_queues[shard].append(t)
         return t
 
     def submit_delete(self, gids) -> MutationTicket:
-        """Queue global ids for tombstoning (applied between pump batches)."""
+        """Queue global ids for tombstoning (applied between pump batches).
+        On a sharded index the ticket rides the queue of the shard that
+        owns the first id (the bitmaps are the index's: routing only
+        spreads the drain work)."""
         if self.segments is None:
             raise ValueError("streaming deletes need a SegmentedIndex")
         payload = np.atleast_1d(np.asarray(gids, np.int64))
-        t = MutationTicket("delete", payload, seq=self._mut_seq)
+        shard = 0
+        if self.sharded is not None and len(payload):
+            shard = int(self.sharded.shard_of_gids(payload[:1])[0])
+        t = MutationTicket("delete", payload, shard=shard, seq=self._mut_seq)
         self._mut_seq += 1
-        self._mut_queues[0].append(t)
+        self._mut_queues[shard].append(t)
         return t
 
     def _mut_eligible(self, *, ignore_backoff: bool) -> List[int]:
@@ -358,7 +401,9 @@ class ThroughputEngine:
                     raise ChaosError("injected mutation failure")
                 mt0 = time.perf_counter()
                 if run[0].kind == "insert":
-                    gids = self.segments.insert(payload)
+                    gids = (self.sharded.insert(payload, shard=qi)
+                            if self.sharded is not None
+                            else self.segments.insert(payload))
                     self.stats["upserts"] += len(gids)
                     rows += len(gids)
                     off = 0
@@ -459,6 +504,29 @@ class ThroughputEngine:
                 return True
         return False
 
+    def _check_shard_health(self) -> None:
+        """Heartbeats and the failover/heal transitions.  In-process shards
+        beat on every pump unless a fault injector holds a stall or loss
+        window for them; a shard quiet past the timeout is declared dead
+        and the sharded index enters its overlay mode (the exposure in
+        ``stats["degraded_coverage"]``); when the beats resume the overlay
+        goes and results return to bit-parity with the healthy index."""
+        if self.heartbeats is None:
+            return
+        inj = self._fault_injector
+        stalled = inj.stalled_shards() if inj is not None else set()
+        for i in range(self.sharded.sp.n_shards):
+            if i not in stalled:
+                self.heartbeats.beat(f"shard:{i}")
+        dead = {int(h.split(":")[1]) for h in self.heartbeats.dead_hosts()}
+        if dead == set(self.sharded.dead_shards):
+            return
+        self.stats["degraded_coverage"] = self.sharded.set_dead_shards(dead)
+        if dead:
+            self.stats["shard_failovers"] += 1
+        else:
+            self.stats["shard_heals"] += 1
+
     # -- scheduler core ---------------------------------------------------
     def _dispatch(self) -> None:
         sp = self.serve_params
@@ -535,9 +603,11 @@ class ThroughputEngine:
         oldest in-flight batch.  Between batches up to
         ``mutations_per_pump`` mutation rows are applied; deferred
         semantic-cache maintenance runs only on otherwise idle cycles.  The
-        hard-expiry sweep runs first, and a ``queue_stall`` fault window
-        suppresses dispatch.  Returns False when there was nothing to do."""
+        shard heartbeats (failover and heal) and the hard-expiry sweep run
+        first, and a ``queue_stall`` fault window suppresses dispatch.
+        Returns False when there was nothing to do."""
         sp = self.serve_params
+        self._check_shard_health()
         expired = self.queue.expire_due()
         self._sync_queue_counters()
         stalled = (self._fault_injector is not None

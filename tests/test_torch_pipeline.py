@@ -12,6 +12,7 @@ import torch
 from repro.core import SearchParams as JSearchParams
 from repro.core.pipeline import degrade_params as j_degrade_params
 from repro_torch.core import (IndexConfig, PilotANNIndex, SearchParams,
+                              ShardedSegmentedIndex, ShardParams,
                               degrade_params, pipelined_search, split_stages)
 from repro_torch.core.pipeline import is_consumed, visited_buffer
 
@@ -128,9 +129,41 @@ def test_pipelined_depth_validation(port_index, small_dataset):
         pipelined_search(port_index.arrays, PARAMS, rot, depth=0)
 
 
-def test_sharded_stages_name_their_queue_item(port_index):
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        split_stages(port_index.arrays, PARAMS, shard_ctx=object())
+@pytest.mark.parametrize("K,placement,donate", [
+    (1, "hot-replicated", False), (2, "hot-replicated", True),
+    (4, "hot-replicated", False), (2, "replicated", False),
+    (4, "replicated", True)])
+def test_sharded_split_stages_match_unsharded(small_dataset, K, placement,
+                                               donate):
+    # the sharded pair over a ShardedSegmentedIndex's per-shard layout
+    # against the unsharded pair over its base arrays, with the same
+    # bitmaps (some rows deleted): ids and distance bits
+    sh = ShardedSegmentedIndex(
+        IndexConfig(**dict(CFG, n_entry=128)), small_dataset.vectors[:600],
+        shard_params=ShardParams(n_shards=K, placement=placement),
+        devices=["cpu"] * K)
+    sh.delete(np.arange(0, 600, 7))
+    ptomb, tomb = sh.shard_tombs()
+    rot = sh.rotate_queries(small_dataset.queries[:16])
+    pilot, cpu = split_stages(sh._shard_arrays, PARAMS, donate=donate,
+                              shard_ctx=sh._shard_ctx)
+    pilot0, cpu0 = split_stages(sh.base.arrays, PARAMS)
+    po = pilot(rot, ptomb)
+    want_po = pilot0(rot, ptomb)
+    for a, b in zip(po, want_po):
+        assert torch.equal(a, b)
+    ids, dists = cpu(rot, *po, ptomb, tomb)
+    want = cpu0(rot, *want_po, ptomb, tomb)
+    assert torch.equal(ids, want[0])
+    assert torch.equal(dists.view(torch.int32), want[1].view(torch.int32))
+    assert not np.isin(ids.numpy(), np.arange(0, 600, 7)).any()
+    assert all(is_consumed(t) for t in po) == donate
+    # the bitmaps are required, and 'replicated' splits the batch evenly
+    with pytest.raises(TypeError, match="tombstone"):
+        pilot(rot)
+    if placement == "replicated":
+        with pytest.raises(ValueError, match="divide by n_shards"):
+            pilot(rot[:K + 1], ptomb)
 
 
 @pytest.mark.parametrize("scale", [1.0, 0.5, 0.1])

@@ -1,9 +1,10 @@
-"""The port's resilient serving (the single-device cases of
-``tests/test_resilience.py``, run against the port): the Request terminal
+"""The port's resilient serving (the cases of ``tests/test_resilience.py``,
+run against the port): the Request terminal
 state machine, bounded admission with priority shedding, hard expiry, the
 degraded rung, RestartPolicy-backed mutation retries and the admission
-invariants, all on ``runtime.chaos``'s SimClock and FaultInjector.  The
-sharded engine waits for ROADMAP Queue A item 5 and raises."""
+invariants, all on ``runtime.chaos``'s SimClock and FaultInjector; and the
+sharded engine's shard failover and heal, held against the reference
+engine's ids."""
 
 import random
 
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 from repro_torch.core import (IndexConfig, PilotANNIndex, SearchParams,
-                              SegmentedIndex, UpdateParams, degrade_params)
+                              SegmentedIndex, ShardedSegmentedIndex,
+                              ShardParams, UpdateParams, degrade_params)
 from repro_torch.runtime import (ChaosError, ElasticPolicy, FaultInjector,
                                  HeartbeatMonitor, RestartPolicy, SimClock,
                                  StragglerMitigator)
@@ -251,15 +253,81 @@ def test_no_silent_drops_under_chaos(port_index, small_dataset):
     assert s["completed"] == states.count("completed")
 
 
-def test_sharded_index_waits_for_queue_a_item_5(port_index):
-    class ShardedSegmentedIndex:       # the reference's pod-sharded index
-        pass
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        ThroughputEngine(ShardedSegmentedIndex(), PARAMS,
-                         ServeParams(warmup=False))
-    from repro_torch.core import split_stages
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        split_stages(port_index.arrays, PARAMS, shard_ctx=object())
+FAILOVER_CFG = dict(R=16, sample_ratio=0.35, svd_ratio=0.5, n_entry=128,
+                    build_method="exact")
+
+
+@pytest.fixture(scope="module")
+def ref_engine_ids(small_dataset):
+    """The reference engine's ids on the failover set-up: the healthy
+    one-shard pod, and a single-device index with the rows of shard 1 of
+    two deleted (the degraded oracle)."""
+    from repro.core import IndexConfig as JIndexConfig
+    from repro.core import SearchParams as JSearchParams
+    from repro.core.distributed import ShardParams as JShardParams
+    from repro.core.distributed import ShardedSegmentedIndex as JSharded
+    from repro.core.segments import SegmentedIndex as JSegmentedIndex
+    from repro.core.segments import UpdateParams as JUpdateParams
+    from repro.serving import ServeParams as JServeParams
+    from repro.serving import ThroughputEngine as JThroughputEngine
+
+    x = small_dataset.vectors[:800]
+    qs = small_dataset.queries[:8]
+    cfg = JIndexConfig(**FAILOVER_CFG)
+    sp = JServeParams(buckets=(8,), depth=1, donate=False, warmup=True)
+    jp = JSearchParams(k=10, ef=32, ef_pilot=32)
+    healthy = JThroughputEngine(JSharded(cfg, x, JUpdateParams(),
+                                         shard_params=JShardParams(n_shards=1)),
+                                jp, sp).serve(qs)[0]
+    oracle = JSegmentedIndex(cfg, x, JUpdateParams())
+    rp = -(-(len(x) + 1) // 2)
+    oracle.delete(np.arange(rp, len(x)))
+    degraded = JThroughputEngine(oracle, jp, sp).serve(qs)[0]
+    return np.asarray(healthy), np.asarray(degraded), np.arange(rp, len(x))
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_shard_failover_and_heal_bit_parity(small_dataset, ref_engine_ids,
+                                            K):
+    # the reference's test_shard_failover_and_heal_bit_parity: a stalled
+    # shard (the only one at K 1, shard 1 at K 2) fails over past the
+    # heartbeat timeout to the overlay, and heals back to the healthy bits
+    want_healthy, want_degraded, dead_rows = ref_engine_ids
+    index = ShardedSegmentedIndex(
+        IndexConfig(**FAILOVER_CFG), small_dataset.vectors[:800],
+        UpdateParams(), shard_params=ShardParams(n_shards=K),
+        devices=["cpu"] * K)
+    clk = SimClock()
+    inj = FaultInjector(clk)
+    sp = ServeParams(buckets=(8,), depth=1, donate=False, warmup=True,
+                     max_wait_s=0.01, heartbeat_timeout_s=0.5)
+    eng = ThroughputEngine(index, PARAMS, sp, clock=clk, fault_injector=inj)
+    qs = small_dataset.queries[:8]
+    ids0, d0, _ = eng.serve(qs)
+    np.testing.assert_array_equal(ids0, want_healthy)
+    stalled = K - 1
+    inj.inject("shard_stall", shard=stalled)
+    clk.advance(1.0)
+    eng.pump()
+    assert eng.stats["shard_failovers"] == 1
+    assert index.dead_shards == {stalled}
+    ids1, _, _ = eng.serve(qs)
+    if K == 1:                     # total outage: nothing survives
+        assert eng.stats["degraded_coverage"] == pytest.approx(1.0)
+        assert (ids1 == -1).all()
+    else:
+        assert 0.0 < eng.stats["degraded_coverage"] < 1.0
+        np.testing.assert_array_equal(index._dead_base_rows(),
+                                      np.isin(np.arange(800), dead_rows))
+        np.testing.assert_array_equal(ids1, want_degraded)
+        assert not np.isin(ids1, dead_rows).any()
+    inj.clear("shard_stall")
+    eng.pump()
+    assert eng.stats["shard_heals"] == 1
+    assert eng.stats["degraded_coverage"] == 0.0
+    ids2, d2, _ = eng.serve(qs)
+    np.testing.assert_array_equal(ids0, ids2)
+    np.testing.assert_array_equal(d0.view(np.uint32), d2.view(np.uint32))
 
 
 # ---------------------------------------------------------------------------

@@ -358,6 +358,36 @@ def test_auto_compact_triggers():
     assert s.generation == 1 and not s.deltas and s.base.n == 700
 
 
+@pytest.mark.parametrize("pilot_dtype", ["bfloat16", "int8", "int4", "pq"])
+def test_quantized_pilot_lifecycle_matches_reference(data, pilot_dtype):
+    """The reference's ``test_deep_pilot_mutable_lifecycle_identical_ids``
+    set-up with a quantized pilot: insert 200, delete 6, compact, search
+    at ef 96 after each step, with stage ① in torch ops, per-hop and
+    persistent (the kernels' plain versions here): ids and every stats key
+    equal to the reference's (whose fused paths equal its jnp path), and
+    every delta array equal."""
+    x, extra, q = data
+    port, ref = _pair(x, pilot_dtype=pilot_dtype)
+    want_p = dataclasses.replace(J_PARAMS, ef=96, ef_pilot=96)
+    ways = [dataclasses.replace(PARAMS, ef=96, ef_pilot=96, **kw) for kw in (
+        {}, {"use_pallas_traversal": True},
+        {"use_persistent_traversal": True})]
+    dead = np.asarray([0, 1, 5, 2000, 2001, 2100])
+    steps = (lambda s: s.insert(extra), lambda s: s.delete(dead),
+             lambda s: s.compact())
+    for i, step in enumerate(steps):
+        step(port)
+        step(ref)
+        _same_delta(port, ref)
+        want = ref.search(q, want_p)
+        for p in ways:
+            got = port.search(q, p)
+            _same_search(got, want)
+            if i:
+                assert not np.isin(got[0], dead).any()
+    assert port.generation == 1 and not port.deltas
+
+
 def test_merge_topk_matches_reference():
     rng = np.random.default_rng(5)
     g = rng.integers(-1, 50, size=(6, 12)).astype(np.int64)

@@ -297,6 +297,59 @@ def test_engine_upsert_queue_interleaves(seg_data):
     np.testing.assert_array_equal(dd.view(np.uint32), sd.view(np.uint32))
 
 
+def _mutable_drive(eng, extra, q):
+    """100 upserts (4 x 25) and 2 deletes interleaved with 16 queries,
+    then 32 queries served: (the 16's ids, the served ids, upserted gids,
+    counters)."""
+    ups, reqs = [], []
+    for i, qq in enumerate(q[:16]):
+        reqs.append(eng.submit(qq))
+        if i % 4 == 0:
+            j = i // 4
+            ups.append(eng.submit_upsert(extra[25 * j:25 * (j + 1)]))
+        if i in (6, 13):
+            eng.submit_delete([3 if i == 6 else 1000])
+        eng.pump()
+    while eng.queue.pending or eng._inflight or eng._mutations_pending():
+        if not eng.pump():
+            break
+    eng.flush()
+    eng.flush_mutations()
+    served = eng.serve(q)[0]
+    counters = {k: eng.stats[k] for k in ("upserts", "deletes",
+                                          "mutation_drains", "stage_rebuilds",
+                                          "batches", "completed")}
+    return (np.stack([np.asarray(r.result[0]) for r in reqs]),
+            np.asarray(served), np.concatenate([t.gids for t in ups]),
+            counters)
+
+
+@pytest.mark.parametrize("pilot_dtype", ["int8", "pq"])
+def test_mutable_engine_quantized_matches_reference(seg_data, pilot_dtype):
+    """The engine over a SegmentedIndex with an int8 or pq pilot (depth 2,
+    donation) against the reference engine on the same script: ids,
+    upserted gids and the six counters equal."""
+    from repro.core import IndexConfig as JIndexConfig
+    from repro.core.segments import SegmentedIndex as JSegmentedIndex
+    from repro.core.segments import UpdateParams as JUpdateParams
+
+    x, extra, q = seg_data
+    cfg = dict(SEG_CFG, pilot_dtype=pilot_dtype)
+    kw = dict(buckets=(8, 16, 32), depth=2, donate=True, warmup=True,
+              max_wait_s=0.0, mutations_per_pump=32)
+    got = _mutable_drive(ThroughputEngine(
+        SegmentedIndex(IndexConfig(**cfg), x, UpdateParams(), device="cpu"),
+        SEG_PARAMS, ServeParams(**kw), clock=SimClock()), extra, q)
+    want = _mutable_drive(JThroughputEngine(
+        JSegmentedIndex(JIndexConfig(**cfg), x, JUpdateParams()),
+        JSearchParams(k=10, ef=64, ef_pilot=64), JServeParams(**kw),
+        clock=JSimClock()), extra, q)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert got[3] == want[3]
+    assert got[3]["upserts"] == 100 and got[3]["deletes"] == 2
+
+
 def test_engine_delete_without_recapture(seg_data):
     """A delete reaches the compiled stage pair through the in-place
     bitmaps: no stage rebuild, no new compiled program, the id gone."""
@@ -371,7 +424,7 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\s|\.|
     "core/segments.py", "core/pipeline.py", "serving/batching.py",
     "serving/server.py", "serving/semantic_cache.py", "runtime/chaos.py",
     "runtime/fault_tolerance.py", "runtime/__init__.py", "launch/serve.py",
-    "../../chip_smoke.py"])
+    "core/distributed.py", "../../chip_smoke.py"])
 def test_new_modules_import_no_jax(rel):
     """The modules this slice adds (and chip_smoke.py) import neither JAX
     nor the JAX package."""
