@@ -140,6 +140,33 @@ Phases, one line each (any failed check exits non-zero):
                donate) at K 2 and 4 with interleaved upserts and deletes,
                and a dead shard's overlay against the deleted-rows oracle,
                then healed; bit-equal wherever not said otherwise.
+  9. train   — the dense training path (``launch/train.py``,
+               ``models/steps.py``, ``optim/``, ``checkpoint/``) on
+               tinyllama-1.1b at full width, random weights from ``--seed``:
+               9a the training attention (``layers.FlashAttention``: K8
+               forward, the chunked FlashAttention-2 backward in torch ops)
+               against autograd through K8's plain version — bf16 at B 1, S
+               4,096, H 32/4, D 64, causal (relative Frobenius error of dq,
+               dk, dv <= 3e-2) and fp32 at D 16 and 64, S 1,024, non-causal,
+               Sq != Sk (1e-4, TF32 off), each forward within K8's bar of
+               the plain one — with forward and backward ms beside SDPA's
+               and the bound, and K8's forward at the steps' own B 8 x S
+               4,096 against the plain version sequence by sequence; 9b 8
+               steps at S 4,096, B 8 (the
+               global batch cut from 256), remat on, TinyLlama's AdamW
+               values with the warmup cut to 1, batches from
+               ``make_token_pipeline`` (losses finite and falling, K8 44
+               times a step, all on the tensor cores; seconds per step,
+               tokens/s, peak memory, the model-flops share), then one
+               step's gradient with the plain attention (loss within 1e-4,
+               gradient cosine >= 0.9999, each attention weight's gradient
+               within 3e-2) and the step with ``microbatches=2`` against
+               the monolithic one (loss within 1e-3, grad norm within 1e-2,
+               each leaf's clipped gradient, read from the new first
+               moment, within 2e-2); 9c ``train(n_layers=2)`` at full
+               width, 4 steps saving every 2, resumed to 6, bit-equal to 6
+               uninterrupted steps (parameters and every checkpoint leaf),
+               checkpoint bytes, save and restore seconds.
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU branch: without a CUDA
 device the script exits non-zero before printing any result.
@@ -148,6 +175,7 @@ device the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -165,6 +193,19 @@ FULL_N = 1_000_000             # DEEP1M, the deployment this cell stands for
 T_START = time.perf_counter()
 
 
+# phase 9: the attention-gradient cases (B, Sq, Sk, H, Hkv, D, dtype,
+# causal, bar) — bf16 at tinyllama's heads and train_4k's length, fp32 at
+# D 16 and 64 — and the train steps' batch, length and count
+TRAIN_ATTENTION_CASES = (
+    (1, 4096, 4096, 32, 4, 64, "bfloat16", True, 3e-2),
+    (2, 1024, 768, 16, 4, 16, "float32", False, 1e-4),
+    (2, 1024, 768, 16, 4, 64, "float32", False, 1e-4))
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4096, 8
+# 9b's bars: K8 against the plain attention (loss, global gradient cosine,
+# each attention weight's gradient) and microbatches=2 against the
+# monolithic step (loss, grad norm, each leaf's clipped gradient)
+PLAIN_LOSS_TOL, PLAIN_COSINE, PLAIN_ATTN_LEAF_TOL = 1e-4, 0.9999, 3e-2
+MICRO_LOSS_TOL, MICRO_NORM_TOL, MICRO_LEAF_TOL = 1e-3, 1e-2, 2e-2
 QUANT = ("bfloat16", "int8", "int4", "pq")   # the quantized pilot dtypes
 TRAVERSAL = "pilot_traversal"                # K1/K2's kernel, in a trace
 FES_EVENT = "fes_"                           # K3-K5's kernels, in a trace
@@ -589,7 +630,8 @@ def rag_phase(torch, np, args, index, counts) -> list:
 
     def plain():
         """The model's attention through K8's plain version instead."""
-        return mock.patch.object(TL, "flash_attention", flash_attention_ref)
+        return mock.patch.object(TL, "flash_attention",
+                                 plain_attention(flash_attention_ref))
 
     forward(params, cfg, req[:1, :64])                      # warm
     reset_launch_counts()
@@ -732,6 +774,420 @@ def rag_phase(torch, np, args, index, counts) -> list:
                                      "bound_share", "bound_fp32_cores_ms",
                                      "library_ms", "library_max_abs_err")},
                  shapes=[fp32])]
+
+
+def plain_attention(flash_attention_ref):
+    """K8's plain version in the signature of ``layers.flash_attention``
+    (which also takes the backward's ``chunk``)."""
+    def attend(q, k, v, *, causal=True, chunk=None):
+        return flash_attention_ref(q, k, v, causal=causal)
+    return attend
+
+
+def train_phase(torch, np, args, counts, dev) -> dict:
+    """Phase 9: the training attention's gradient against autograd through
+    K8's plain version, 8 full-width train steps of tinyllama-1.1b, the step
+    with the plain attention and microbatched, and a restart from a
+    checkpoint.  Returns the phase's numbers."""
+    import shutil
+    import tempfile
+    import torch.nn.functional as F
+    import repro_torch.launch.train as T
+    from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import make_token_pipeline
+    from repro_torch.kernels import (flash_attention, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import layers as TL
+    from repro_torch.models import steps as TS
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_config("tinyllama-1.1b")
+    L, H, D = cfg.n_layers, cfg.n_heads, cfg.head_dim
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+
+    # ---- 9a. the attention's gradient -----------------------------------
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    rows = []
+    for (B, Sq, Sk, Hq, Hk, Dh, dtype, causal, tol) in TRAIN_ATTENTION_CASES:
+        dtype = getattr(torch, dtype)
+        q, k, v = [torch.randn((B, S, h, Dh), generator=g, device=dev
+                               ).to(dtype).requires_grad_(True)
+                   for S, h in ((Sq, Hq), (Sk, Hk), (Sk, Hk))]
+        do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+        before, before_bf16 = (flash_attention.launches,
+                               flash_attention.bf16_launches)
+        o = TL.flash_attention(q, k, v, causal=causal,
+                               chunk=cfg.attn_chunk)
+        got = torch.autograd.grad(o, (q, k, v), do)
+        torch.cuda.synchronize()
+        check(flash_attention.launches == before + 1
+              and flash_attention.bf16_launches == before_bf16 + (
+                  dtype == torch.bfloat16),
+              f"train attention {dtype}: K8 launched "
+              f"{flash_attention.launches - before} times")
+        ref_o = flash_attention_ref(q, k, v, causal=causal)
+        o32, ref32 = o.detach().float(), ref_o.detach().float()
+        o_err = float((o32 - ref32).abs().max())
+        o_ok = torch.allclose(o32, ref32, rtol=tol, atol=tol)
+        del o32, ref32
+        want = torch.autograd.grad(ref_o, (q, k, v), do)
+        errs = [rel(a, b) for a, b in zip(got, want)]
+        del got, want, o, ref_o
+        torch.cuda.empty_cache()
+        shape = (B, Sq, Sk, Hq, Hk, Dh)
+        check(o_ok, f"train attention {dtype} (B, Sq, Sk, H, Hkv, D) = "
+              f"{shape}: forward max abs err {o_err}, atol/rtol {tol}")
+        check(max(errs) <= tol, f"train attention {dtype} (B, Sq, Sk, H, "
+              f"Hkv, D) = {shape}: relative errors (dq, dk, dv) {errs}, "
+              f"bar {tol}")
+        row = dict(shape=list(shape), dtype=str(dtype)[6:], causal=causal,
+                   max_abs_err_o=o_err, rel_err_dq_dk_dv=errs, tol=tol)
+        if dtype == torch.bfloat16:
+            def fwd():
+                return TL.flash_attention(q, k, v, causal=causal,
+                                          chunk=cfg.attn_chunk)
+
+            def fwd_bwd():
+                torch.autograd.grad(fwd(), (q, k, v), do)
+
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                          for x in (q, k, v))
+            dot = do.transpose(1, 2)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+            f_ms = time_ms(torch, fwd, reps=10)
+            fb_ms = time_ms(torch, fwd_bwd, reps=10)
+            s_ms = time_ms(torch, sdpa, reps=10)
+            sb_ms = time_ms(torch, sdpa_fwd_bwd, reps=10)
+            flops = 2.0 * B * Hq * Sq * (Sq + 1) * Dh
+            row.update(fwd_ms=f_ms, bwd_ms=fb_ms - f_ms, sdpa_fwd_ms=s_ms,
+                       sdpa_bwd_ms=sb_ms - s_ms,
+                       fwd_bound_ms=1e3 * flops / BF16_FLOPS_PER_S,
+                       bwd_bound_ms=1e3 * 2.5 * flops / BF16_FLOPS_PER_S)
+            del qt, kt, vt, dot
+        rows.append(row)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+    # K8's forward at the shape the train steps give it, against its plain
+    # version one sequence at a time (its (B, H, S, S) fp32 scores would
+    # take 34 GB at once)
+    B, S, tol = TRAIN_BATCH, TRAIN_SEQ, 3e-2
+    q, k, v = [torch.randn((B, S, h, D), generator=g, device=dev
+                           ).to(torch.bfloat16)
+               for h in (H, cfg.n_kv_heads, cfg.n_kv_heads)]
+    before = flash_attention.bf16_launches
+    o = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check(flash_attention.bf16_launches == before + 1,
+          f"K8 forward (B, S) = ({B}, {S}): "
+          f"{flash_attention.bf16_launches - before} tensor-core launches")
+    fwd_errs = []
+    for i in range(B):
+        want = flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                   causal=True).float()
+        fwd_errs.append(float((o[i:i + 1].float() - want).abs().max()))
+        check(torch.allclose(o[i:i + 1].float(), want, rtol=tol, atol=tol),
+              f"K8 forward (B, S) = ({B}, {S}) bf16 causal, sequence {i}: "
+              f"max abs err {fwd_errs[-1]}, atol/rtol {tol}")
+        del want
+    del q, k, v, o
+    torch.cuda.empty_cache()
+    fwd_case = dict(shape=[B, S, S, H, cfg.n_kv_heads, D], dtype="bfloat16",
+                    causal=True, max_abs_err=max(fwd_errs), tol=tol)
+    a = rows[0]
+    print(f"[train] 9a attention gradient (layers.FlashAttention: K8 forward, "
+          f"the chunked FlashAttention-2 backward in torch ops) against "
+          f"autograd through K8's plain version: " + "; ".join(
+              f"{r['dtype']} {tuple(r['shape'])}{' causal' * r['causal']}: "
+              f"forward max abs err {r['max_abs_err_o']:.3g}, "
+              f"dq/dk/dv rel err {', '.join(f'{e:.3g}' for e in r['rel_err_dq_dk_dv'])}"
+              f" (bar {r['tol']:g})" for r in rows)
+          + f" | K8 forward at the steps' shape {tuple(fwd_case['shape'])} "
+          f"bf16 causal, sequence by sequence against the plain version: "
+          f"max abs err {fwd_case['max_abs_err']:.3g} (atol/rtol {tol:g})"
+          + f" | bf16 {tuple(a['shape'])}: forward {a['fwd_ms']:.4f} ms, "
+          f"backward {a['bwd_ms']:.4f} ms vs SDPA {a['sdpa_fwd_ms']:.4f} / "
+          f"{a['sdpa_bwd_ms']:.4f} ms | bounds {a['fwd_bound_ms']:.4f} / "
+          f"{a['bwd_bound_ms']:.4f} ms (2·B·H·S·(S+1)·D and 2.5x that at "
+          f"{BF16_FLOPS_PER_S / 1e12:g} TFLOP/s) ({stamp()})", flush=True)
+    out["attention"] = rows
+    out["forward_at_train_shape"] = fwd_case
+
+    # ---- 9b. full-width train steps -------------------------------------
+    B, S, steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    shape = ShapeSpec("train_4k_card", S, B, "train")
+    opt = AdamWConfig(lr=4e-4, b2=0.95, weight_decay=0.1, grad_clip=1.0,
+                      warmup_steps=1, total_steps=steps)
+    pipe = make_token_pipeline(cfg, shape, seed=args.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state = TS.init_train_state(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = sum(p.numel() for p in params.parameters())
+    n_dense = n_par - params.embed.numel()
+    step = TS.make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, norms, secs = [], [], []
+    for s in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, state, pipe.batch_at(s))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    counts["train"] = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = 2 * L
+    check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"train: loss did not fall {losses}")
+    check(counts["train"]["flash_attention"] == per_step * steps
+          and counts["train"]["flash_attention_bf16"] == per_step * steps,
+          f"train: K8 launched {counts['train']['flash_attention']} times "
+          f"({counts['train']['flash_attention_bf16']} on the tensor cores), "
+          f"expected {per_step} a step ({L} layers x forward and remat "
+          f"recompute) x {steps}")
+    step_s = statistics.median(secs[1:])
+    T_ = B * S
+    attn = 3 * L * 2.0 * B * H * S * (S + 1) * D
+    model_flops = 6.0 * n_dense * T_ + attn
+    mfu = model_flops / (step_s * BF16_FLOPS_PER_S)
+    out["steps"] = dict(losses=losses, grad_norms=norms, seconds=secs,
+                        step_s=step_s, tokens_per_s=T_ / step_s,
+                        peak_bytes=peak, model_flops=model_flops, mfu=mfu,
+                        init_s=init_s, n_params=n_par, n_dense=n_dense,
+                        launches=counts["train"])
+    print(f"[train] 9b {cfg.name} full width ({L} layers, d_model "
+          f"{cfg.d_model}, {H}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, bf16 weights, fp32 Adam moments, remat "
+          f"{cfg.remat}), {n_par:,} parameters from seed {args.seed} "
+          f"({init_s:.1f} s), B {B} x S {S}, {steps} steps, AdamWConfig("
+          f"lr 4e-4, b2 0.95, wd 0.1, clip 1.0, warmup 1, total {steps}): "
+          f"loss {[round(x, 4) for x in losses]}, grad norm "
+          f"{[round(x, 4) for x in norms]} | step seconds "
+          f"{[round(x, 3) for x in secs]} (median after the first "
+          f"{step_s:.3f} s, {T_ / step_s:,.0f} tokens/s) | peak device memory "
+          f"{peak / 1e9:.2f} GB | model-flops share {mfu:.4f} = (6·N·T + "
+          f"3·L·2·B·H·S·(S+1)·D) / (step s x {BF16_FLOPS_PER_S / 1e12:g} "
+          f"TFLOP/s), N {n_dense:,} (no embedding table), T {T_:,}, remat "
+          f"recompute not counted | K8 launches {counts['train']['flash_attention']}"
+          f" ({per_step} a step, all bf16) ({stamp()})", flush=True)
+    print("[train] reduced " + json.dumps({
+        "global_batch": [256, B], "why": f"train_4k's 256 sequences cut to "
+        f"{B} for the time limit", "warmup_steps": "TinyLlama's 2000 cut to 1 so "
+        "that 8 steps move bf16 weights"}), flush=True)
+
+    # every comparison below starts from the state after the 8 steps
+    snap = ({n: p.detach().clone() for n, p in params.named_parameters()},
+            {k: {n: t.clone() for n, t in state[k].items()} for k in "mv"},
+            state["step"].clone())
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.named_parameters():
+                p.copy_(snap[0][n])
+        for k in "mv":
+            for n, t in state[k].items():
+                t.copy_(snap[1][k][n])
+        state["step"].copy_(snap[2])
+
+    # where a step's time goes: one more step with the attention's forward
+    # (K8), its backward and the AdamW update each timed between
+    # synchronisations (host clock), the rest by difference
+    batch = pipe.batch_at(steps)
+    spent = {"k8_forward": 0.0, "attention_backward": 0.0, "adamw": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return r
+        return run
+
+    with mock.patch.object(TL, "_k8", timed("k8_forward", TL._k8)), \
+            mock.patch.object(TL, "attention_backward",
+                              timed("attention_backward",
+                                    TL.attention_backward)), \
+            mock.patch.object(TS, "adamw_update",
+                              timed("adamw", TS.adamw_update)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        split_s = time.perf_counter() - t0
+    restore()
+    spent["rest"] = split_s - sum(spent.values())
+    out["split"] = dict(step_s=split_s, **spent)
+    print(f"[train] 9b where a step goes (one more step, each part timed "
+          f"between synchronisations): {split_s:.3f} s = " + ", ".join(
+              f"{k} {v:.3f} s ({v / split_s:.3f})" for k, v in spent.items())
+          + f" ({stamp()})", flush=True)
+
+    # one step's gradient from the same state with the plain attention,
+    # each sequence its own microbatch (the plain version holds (S, S)
+    # scores per head)
+    def grads_of(attend):
+        with mock.patch.object(TL, "flash_attention", attend):
+            loss, grads = TS.accumulate_grads(params, cfg, batch, B)
+        return float(loss), grads
+
+    t0 = time.perf_counter()
+    loss8, g8 = grads_of(TL.flash_attention)
+    t8 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lossp, gp = grads_of(plain_attention(flash_attention_ref))
+    tp = time.perf_counter() - t0
+    dot = sum(float((g8[n].double() * gp[n].double()).sum()) for n in g8)
+    n8 = sum(float(g8[n].double().square().sum()) for n in g8)
+    np_ = sum(float(gp[n].double().square().sum()) for n in g8)
+    cos = dot / (n8 * np_) ** 0.5
+    lrel = abs(loss8 - lossp) / abs(lossp)
+    # attention's weights (wq, wk, wv, wo of every layer) one by one, so
+    # that a fault in the attention's gradient cannot hide in the global
+    # norm
+    attn = {n: rel(g8[n], gp[n]) for n in g8 if ".attn." in n}
+    worst = max(attn, key=attn.get)
+    del g8, gp
+    torch.cuda.empty_cache()
+    out["plain"] = dict(loss_k8=loss8, loss_plain=lossp, loss_rel=lrel,
+                        grad_cosine=cos, attn_leaf_rel_max=attn[worst],
+                        attn_leaf_worst=worst, attn_leaves=len(attn),
+                        seconds_k8=t8, seconds_plain=tp)
+    print(f"[train] 9b K8 vs plain attention, one step's gradient from the "
+          f"same state (step {steps}'s batch, {B} microbatches of 1): loss "
+          f"{loss8:.6f} vs {lossp:.6f} (rel {lrel:.3g}, bar "
+          f"{PLAIN_LOSS_TOL:g}), global gradient cosine {cos:.8f} (bar "
+          f"{PLAIN_COSINE:g}), attention weights' gradients ({len(attn)} "
+          f"leaves) relative error max {attn[worst]:.3g} at {worst}, median "
+          f"{statistics.median(attn.values()):.3g} (bar "
+          f"{PLAIN_ATTN_LEAF_TOL:g}) | {t8:.1f} s vs {tp:.1f} s ({stamp()})",
+          flush=True)
+    check(lrel <= PLAIN_LOSS_TOL and cos >= PLAIN_COSINE
+          and attn[worst] <= PLAIN_ATTN_LEAF_TOL,
+          f"train: K8 and plain steps disagree: loss rel {lrel}, cosine "
+          f"{cos}, {worst} rel {attn[worst]}")
+
+    # the step microbatched against monolithic, from one state; each
+    # leaf's clipped gradient is read back from the new first moment,
+    # m - b1·m_old = (1 - b1)·g
+    m_old = snap[1]["m"]
+    mono = TS.make_train_step(cfg, opt, microbatches=1)(params, state,
+                                                        batch)[2]
+    g_mono = {n: t - opt.b1 * m_old[n] for n, t in state["m"].items()}
+    restore()
+    micro = TS.make_train_step(cfg, opt, microbatches=2)(params, state,
+                                                         batch)[2]
+    leaf = {n: rel(t - opt.b1 * m_old[n], g_mono[n])
+            for n, t in state["m"].items()}
+    lworst = max(leaf, key=leaf.get)
+    del g_mono
+    lm, lmb = float(mono["loss"]), float(micro["loss"])
+    nm, nmb = float(mono["grad_norm"]), float(micro["grad_norm"])
+    mrel, nrel = abs(lm - lmb) / abs(lm), abs(nm - nmb) / abs(nm)
+    out["microbatches"] = dict(loss_mono=lm, loss_micro2=lmb, rel=mrel,
+                               grad_norm_mono=nm, grad_norm_micro2=nmb,
+                               grad_norm_rel=nrel, leaf_rel_max=leaf[lworst],
+                               leaf_worst=lworst)
+    print(f"[train] 9b microbatches=2 vs monolithic from one state: loss "
+          f"{lmb:.6f} vs {lm:.6f} (rel {mrel:.3g}, bar {MICRO_LOSS_TOL:g}), "
+          f"grad norm {nmb:.5f} vs {nm:.5f} (rel {nrel:.3g}, bar "
+          f"{MICRO_NORM_TOL:g}), each leaf's clipped gradient ({len(leaf)} "
+          f"leaves) relative error max {leaf[lworst]:.3g} at {lworst}, median "
+          f"{statistics.median(leaf.values()):.3g} (bar {MICRO_LEAF_TOL:g}) "
+          f"({stamp()})", flush=True)
+    check(mrel <= MICRO_LOSS_TOL and nrel <= MICRO_NORM_TOL
+          and leaf[lworst] <= MICRO_LEAF_TOL,
+          f"train: microbatched step vs monolithic: loss {lmb} vs {lm}, grad "
+          f"norm {nmb} vs {nm}, {lworst} rel {leaf[lworst]}")
+    del params, state, snap, m_old, mono, micro, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 9c. restart from a checkpoint, full width at 2 layers ----------
+    def leaves(tree):
+        p, o = tree
+        return {**{f"params/{n}": t for n, t in p.items()},
+                **{f"{k}/{n}": t for k in "mv" for n, t in o[k].items()},
+                "step": o["step"]}
+
+    times = {"save": [], "restore": []}
+    real_save = CheckpointManager.maybe_save
+    real_restore = CheckpointManager.restore_or_none
+
+    def timed_save(self, *a, **kw):
+        t0 = time.perf_counter()
+        r = real_save(self, *a, **kw)
+        if r is not None:
+            times["save"].append(time.perf_counter() - t0)
+        return r
+
+    def timed_restore(self, *a, **kw):
+        t0 = time.perf_counter()
+        r = real_restore(self, *a, **kw)
+        if r is not None:
+            torch.cuda.synchronize()
+            times["restore"].append(time.perf_counter() - t0)
+        return r
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        run = dict(seed=args.seed, shape=shape, log_every=1, opt_cfg=opt,
+                   device=dev, n_layers=2)
+        with mock.patch.object(CheckpointManager, "maybe_save", timed_save), \
+                mock.patch.object(CheckpointManager, "restore_or_none",
+                                  timed_restore):
+            T.train(cfg.name, steps=4, ckpt_dir=f"{tmp}/a", save_interval=2,
+                    **run)
+            resumed, hist = T.train(cfg.name, steps=6, ckpt_dir=f"{tmp}/a",
+                                    save_interval=2, **run)
+            straight, _ = T.train(cfg.name, steps=6, ckpt_dir=f"{tmp}/b",
+                                  save_interval=100, **run)
+        check(hist[0][0] == 4, f"restart: resumed at step {hist[0][0]}")
+        same_p = all(torch.equal(x, y) for x, y in zip(
+            resumed.parameters(), straight.parameters()))
+        like = T.train_tree(resumed, adamw_init(resumed))
+        del resumed, straight
+        ta, _ = load_checkpoint(f"{tmp}/a", like, step=5)
+        tb, _ = load_checkpoint(f"{tmp}/b", like, step=5)
+        la, lb = leaves(ta), leaves(tb)
+        differ = [k for k in la if not torch.equal(la[k], lb[k])]
+        ck_bytes = sum(f.stat().st_size for f in
+                       Path(f"{tmp}/a/step_00000005").iterdir())
+        del ta, tb, la, lb, like
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["restart"] = dict(params_equal=same_p, leaves_differing=differ,
+                          checkpoint_bytes=ck_bytes, save_s=times["save"],
+                          restore_s=times["restore"])
+    print(f"[train] 9c restart, {cfg.name} full width at 2 layers (depth cut "
+          f"from 22 to keep the checkpoint small): 4 steps saving every 2, "
+          f"then a fresh train(steps=6) restored at step 3, against 6 steps "
+          f"uninterrupted: parameters bit-equal {same_p}, checkpoint leaves "
+          f"differing {len(differ)} of params + AdamW m, v, step | checkpoint "
+          f"{ck_bytes / 1e9:.3f} GB, save seconds "
+          f"{[round(x, 2) for x in times['save']]}, restore seconds "
+          f"{[round(x, 2) for x in times['restore']]} ({stamp()})", flush=True)
+    check(same_p and not differ, f"restart not bit-equal: params {same_p}, "
+          f"leaves {differ[:5]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def poisson(np, rate: float, n: int, seed: int):
@@ -1504,7 +1960,6 @@ def main() -> int:
           f"{torch.cuda.device_count()} | kernels built in {build_s:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in _build.BUILD_SECONDS.items())})",
           flush=True)
-
     # ---- 2. index build: NN-descent + prune on the card -----------------
     # n + hold rows of one DEEP-shaped corpus: the first n are the index,
     # the tail (1% at full size) is held out for phase 7's upserts
@@ -2364,6 +2819,14 @@ def main() -> int:
     # ---- 8. pod: the sharded index and engine ------------------------------
     pod_out = pod_phase(torch, np, args, cfg, ds, counts)
     print(f"[pod] {card} | " + json.dumps(pod_out, default=str), flush=True)
+
+    # ---- 9. train: the dense training path at full width -----------------
+    del index
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_out = train_phase(torch, np, args, counts, dev)
+    print(f"[train] {card} | " + json.dumps(train_out, default=str),
+          flush=True)
 
     # each kernel's launches on the first path that must launch it (K7 on
     # the build, K1 and K3 on ``search``, K2 on the per-hop path; K6 on

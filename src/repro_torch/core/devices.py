@@ -1,4 +1,4 @@
-"""Where the port runs: the device rule and fp32 products.
+"""Where the port runs: the device rule and the precision of products.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 there is no silent fallback from the card to the CPU.
@@ -24,13 +24,18 @@ def resolve_device(device=None) -> torch.device:
 
 
 @contextlib.contextmanager
-def fp32_products():
-    """Full-fp32 matrix products inside the block (no TF32, which keeps
-    about three digits and would move graph-build ties); the caller's
-    setting is restored on exit."""
+def matmul_tf32(allow: bool):
+    """TF32 matrix products on (``allow``) or off inside the block; the
+    caller's setting is restored on exit."""
     saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = allow
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def fp32_products():
+    """Full-fp32 matrix products inside the block (no TF32, which keeps
+    about three digits and would move graph-build ties)."""
+    return matmul_tf32(False)

@@ -1,20 +1,68 @@
-"""Deterministic synthetic vector corpora — numpy copy of the vector half of
-``repro.data.pipeline`` (the port imports nothing of the JAX package).
+"""Deterministic synthetic data — a numpy copy of ``repro.data.pipeline``
+(the port imports nothing of the JAX package).
 
-Distribution-matched synthetic corpora for the ANNS engine: mixtures of
-anisotropic Gaussian clusters with heavy-tailed cluster sizes plus a
-low-rank global component, which reproduces the spectral decay that makes
-SVD-based primary/residual splits meaningful (real embedding sets like
-DEEP/LAION concentrate most distance mass in the top dims).  The same seed
-gives the same arrays as the reference.
+Token pipeline: seeded per (step, host) so every host generates exactly its
+own shard — no central dispenser, restart-safe (resuming at step k
+regenerates the identical batch).  Data is a pure function of (seed, step),
+the same arrays as the reference's, bit for bit.
+
+Vector corpora: distribution-matched synthetic corpora for the ANNS
+engine: mixtures of anisotropic Gaussian clusters with heavy-tailed cluster
+sizes plus a low-rank global component, which reproduces the spectral decay
+that makes SVD-based primary/residual splits meaningful (real embedding
+sets like DEEP/LAION concentrate most distance mass in the top dims).  The
+same seed gives the same arrays as the reference.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+
+@dataclass
+class TokenPipeline:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    n_hosts: int = 1
+    host_id: int = 0
+    seed: int = 0
+
+    @property
+    def host_batch(self) -> int:
+        if self.global_batch % self.n_hosts:
+            raise ValueError(f"global batch {self.global_batch} does not "
+                             f"split over {self.n_hosts} hosts")
+        return self.global_batch // self.n_hosts
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        """The host's shard of the global batch for ``step`` (pure function):
+        ``tokens`` and ``labels`` (the tokens shifted by one), int32."""
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, self.host_id]))
+        # zipf-ish marginal over the vocab + markov-ish repetition structure
+        base = rng.zipf(1.3, size=(self.host_batch, self.seq_len + 1))
+        tokens = (base % (self.vocab_size - 2)) + 1
+        rep = rng.random((self.host_batch, self.seq_len + 1)) < 0.15
+        tokens[:, 1:][rep[:, 1:]] = tokens[:, :-1][rep[:, 1:]]
+        tokens = tokens.astype(np.int32)
+        return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+def make_token_pipeline(cfg, shape, *, n_hosts: int = 1, host_id: int = 0,
+                        seed: int = 0) -> TokenPipeline:
+    return TokenPipeline(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
+                         global_batch=shape.global_batch, n_hosts=n_hosts,
+                         host_id=host_id, seed=seed)
 
 
 # ---------------------------------------------------------------------------

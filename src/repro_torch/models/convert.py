@@ -6,7 +6,9 @@ for bit.  The reference stacks every layer leaf on a leading
 ``(n_layers,)`` dim; here each layer is its own module, so the stack is
 unstacked.  bf16 leaves arrive as ``ml_dtypes`` bfloat16 arrays (what
 ``np.asarray`` gives for a jax array) or as their uint16 bit patterns;
-both cross as 16-bit patterns.
+both cross as 16-bit patterns.  ``opt_state_from_reference`` carries the
+reference's AdamW state (``{"m", "v", "step"}``, moments shaped like the
+params) onto the port's parameter names, so both sides can start mid-run.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 from repro_torch.core.devices import resolve_device
 from repro_torch.core.engine import _to_tensor
 from repro_torch.models.model import Model
+from repro_torch.optim import adamw_init
 
 
 def _tensor(a) -> torch.Tensor:
@@ -37,22 +40,34 @@ def _leaves(tree: Mapping, prefix: str = ""):
             yield prefix + k, v
 
 
-def _fill(params: Dict[str, nn.Parameter], leaves: Dict, layer=None,
-          n_layers=None) -> None:
-    """Copy each parameter from the reference leaf of the same path;
-    ``layer`` indexes a stacked leading dim of length ``n_layers``."""
-    if set(params) != set(leaves):
+def _unstacked(np_tree: Mapping, model: Model) -> Dict[str, torch.Tensor]:
+    """{port parameter name: tensor} of a tree shaped like the reference's
+    params, the layer stack cut into ``layers.<i>.``; refuses a tree that
+    does not cover the model's parameters exactly."""
+    leaves = {n: _tensor(a) for n, a in _leaves(np_tree)}
+    out = {n: t for n, t in leaves.items() if not n.startswith("layers.")}
+    L = len(model.layers)
+    for n, t in leaves.items():
+        if n.startswith("layers."):
+            if t.shape[0] != L:
+                raise ValueError(f"{n}: {t.shape[0]} layers stacked, the "
+                                 f"model has {L}")
+            for i in range(L):
+                out[f"layers.{i}.{n[len('layers.'):]}"] = t[i]
+    names = {n for n, _ in model.named_parameters()}
+    if set(out) != names:
         raise ValueError(f"reference leaves without a port parameter: "
-                         f"{sorted(set(leaves) - set(params))}; port "
-                         f"parameters without a reference leaf: "
-                         f"{sorted(set(params) - set(leaves))}")
+                         f"{sorted(set(out) - names)}; port parameters "
+                         f"without a reference leaf: {sorted(names - set(out))}")
+    return out
+
+
+def _fill(params: Dict[str, nn.Parameter],
+          tensors: Dict[str, torch.Tensor]) -> None:
+    """Copy each parameter from the tensor of the same name, which must
+    have its shape and dtype."""
     for name, param in params.items():
-        src = leaves[name]
-        if layer is not None:
-            if src.shape[0] != n_layers:
-                raise ValueError(f"layers.{name}: {src.shape[0]} layers "
-                                 f"stacked, the config has {n_layers}")
-            src = src[layer]
+        src = tensors[name]
         if src.shape != param.shape or src.dtype != param.dtype:
             raise ValueError(f"{name}: reference {tuple(src.shape)} "
                              f"{src.dtype}, port {tuple(param.shape)} "
@@ -64,13 +79,18 @@ def params_from_reference(np_params: Mapping, cfg, device=None) -> Model:
     """The port's ``Model`` holding the reference's ``init_params`` values
     (same dtypes, same bits) on ``device`` (the card unless ``"cpu"``)."""
     p = Model(cfg, device=resolve_device(device))
-    top = {n: t for n, t in p.named_parameters()
-           if not n.startswith("layers.")}
     with torch.no_grad():
-        _fill(top, {n: _tensor(a) for n, a in _leaves(np_params)
-                    if not n.startswith("layers.")})
-        stacked = {n: _tensor(a) for n, a in _leaves(np_params["layers"])}
-        for i, layer in enumerate(p.layers):
-            _fill(dict(layer.named_parameters()), stacked, layer=i,
-                  n_layers=len(p.layers))
+        _fill(dict(p.named_parameters()), _unstacked(np_params, p))
     return p
+
+
+def opt_state_from_reference(np_opt_state: Mapping, model: Model) -> dict:
+    """The reference's ``adamw_init``/``adamw_update`` state as host arrays
+    -> the port's ``{"m": {name: fp32}, "v": {name: fp32}, "step": int32}``
+    on ``model``'s device, bit for bit."""
+    state = adamw_init(model)
+    with torch.no_grad():
+        for key in ("m", "v"):
+            _fill(state[key], _unstacked(np_opt_state[key], model))
+    state["step"].fill_(int(np.asarray(np_opt_state["step"])))
+    return state

@@ -1,15 +1,19 @@
 """Neural layers of the dense decoder: norms, RoPE, attention (full-sequence
-through the flash-attention kernel K8, single-token over a KV cache), MLP.
-Port of the dense subset of ``repro.models.layers``.
+through the flash-attention kernel K8, single-token over a KV cache), MLP,
+and the training loss.  Port of the dense subset of
+``repro.models.layers``.
 
 Parameters are ``nn.Module``s holding the reference's leaves under the
 reference's names (``Linear.w`` is ``(d_in, d_out)`` and the product is
 ``x @ w``, so weights carried from the reference need no transpose); the
 layer functions take a module where the reference takes its param dict.
-Parameters do not require gradients: the port serves, and K8 has no
-backward yet.  Left out: the GSPMD sharding hooks (``constrain_*``,
-``set_activation_spec``; one card has nothing to shard) and the training
-loss ``chunked_softmax_xent``.
+Parameters are created without gradients (the serving path);
+``steps.init_train_state`` turns them on.  Under autograd the attention is
+``FlashAttention``: K8 forward, and the FlashAttention-2 backward in
+PyTorch ops, chunk by chunk, the counterpart of XLA's autodiff of the
+reference's rematerialised jnp scan (the reference has no backward kernel).
+Left out: the GSPMD sharding hooks (``constrain_*``,
+``set_activation_spec``; one card has nothing to shard).
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.devices import matmul_tf32
 from repro_torch.kernels.flash_attention import flash_attention as _k8
 from repro_torch.kernels.ref import NEG_INF
 
@@ -135,13 +141,113 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, chunk: int = 1024) -> torch.Tensor:
     """q (B, Sq, H, D); k, v (B, Sk, Hkv, D), H % Hkv == 0 -> (B, Sq, H, D)
     in q's dtype.  K8 (``kernels.flash_attention``) on the card, its plain
-    version on the CPU.  The reference's chunk sizes, ``scale`` and
-    ``q_offset`` are not taken: the kernel scales by D^-½ and aligns q and k
-    at position 0, which is what every caller of the dense path passes."""
+    version on the CPU; under autograd (grad mode on and an input that
+    requires grad) through ``FlashAttention``, whose backward works in
+    query chunks of ``chunk`` rows (the reference's ``chunk_q``).  The
+    reference's ``scale`` and ``q_offset`` are not taken: the kernel scales
+    by D^-½ and aligns q and k at position 0, which is what every caller of
+    the dense path passes."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, chunk)
     return _k8(q, k, v, causal=causal)
+
+
+# fp32 bytes of one slab of scores in the backward: a slab is as many
+# sequences of one query chunk as fit (at least one)
+BACKWARD_SLAB_BYTES = 1 << 30
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention: K8 forward; the FlashAttention-2 backward
+    in PyTorch ops.  Saves q, k and v only; the backward recomputes the
+    scores per query chunk over the keys that chunk can see, so its peak is
+    one slab's (rows, S) fp32 scores, never O(S²) for the whole batch.
+
+    Products run on fp32 copies.  For bf16 inputs they may use TF32 (the
+    operands of q·kᵀ, dO·Vᵀ and Pᵀ·dO are bf16 values, exact in TF32; dS's
+    products round dS to TF32's 10 bits, far inside the bf16 gradient's
+    8); for fp32 inputs TF32 is off."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.chunk = causal, chunk
+        return _k8(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        with matmul_tf32(q.dtype != torch.float32):
+            dq, dk, dv = attention_backward(q, k, v, do, causal=ctx.causal,
+                                            chunk=ctx.chunk)
+        return dq, dk, dv, None, None
+
+
+def attention_backward(q, k, v, do, *, causal: bool, chunk: int):
+    """(dq, dk, dv) of softmax(q·kᵀ·D^-½)·v with cotangent ``do``, in q's,
+    k's and v's dtypes.  Per query chunk: S over the keys it sees (causal
+    chunks stop at their last row), P the row softmax in fp32, dV += Pᵀ·dO
+    (P rounded to v's dtype, as the forward rounds it), dP = dO·Vᵀ, Δ =
+    rowsum(P∘dP), dS = P∘(dP − Δ), dQ = dS·K·D^-½, dK += dSᵀ·Q·D^-½; the
+    query group of each key head is one row block of the products, so dK
+    and dV sum over it (GQA).
+
+    Δ is FlashAttention-2's rowsum(dO∘O), taken from the fp32 P and dP of
+    the whole row, which each chunk holds: from a bf16 O its rounding does
+    not cancel in dS's row sum, and where dQ is small (trained query and
+    key weights) it made their gradients 0.1 off."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    # (B, Hkv, G, S, D) fp32: query head h reads key head h // G
+    qf, dof = (t.float().reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4)
+               for t in (q, do))
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))   # (B, Hkv, Sk, D)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    cq = max(1, min(chunk, Sq))
+    rows = max(1, BACKWARD_SLAB_BYTES // (4 * H * cq * max(Sk, 1)))
+    for i0 in range(0, Sq, cq):
+        i1 = min(i0 + cq, Sq)
+        nk = min(i1, Sk) if causal else Sk
+        if nk == 0:
+            continue
+        c = i1 - i0
+        for b0 in range(0, B, rows):
+            bs = slice(b0, min(b0 + rows, B))
+            nb = bs.stop - b0
+
+            def rows_of(t):
+                return t[bs, :, :, i0:i1].reshape(nb, Hkv, G * c, -1)
+
+            qc, doc = rows_of(qf), rows_of(dof)
+            kc, vc = kf[bs, :, :nk], vf[bs, :, :nk]
+            s = torch.matmul(qc, kc.transpose(-1, -2)).mul_(scale)
+            if causal:
+                # rows i0..i1 see keys <= their own position
+                qpos = torch.arange(i0, i1, device=q.device).repeat(G)
+                s.masked_fill_(qpos[:, None] < torch.arange(nk, device=q.device),
+                               NEG_INF)
+            p = torch.softmax(s, dim=-1)
+            del s
+            dv[bs, :, :nk] += torch.matmul(
+                p.to(v.dtype).float().transpose(-1, -2), doc)
+            dp = torch.matmul(doc, vc.transpose(-1, -2))
+            ds = dp.sub_((dp * p).sum(-1, keepdim=True)).mul_(p)
+            del p
+            dq[bs, :, :, i0:i1] = torch.matmul(ds, kc).mul_(scale).reshape(
+                nb, Hkv, G, c, D)
+            dk[bs, :, :nk] += torch.matmul(ds.transpose(-1, -2), qc).mul_(scale)
+            del ds
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    return (dq, dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
 def cache_update(cache: torch.Tensor, new: torch.Tensor, pos: int
@@ -215,7 +321,7 @@ def attention(p: Attention, x: torch.Tensor, cfg, *, angles=None,
     override (whisper's cross-attention) waits for the encdec family."""
     B, S, _ = x.shape
     q, k, v = attention_qkv(p, x, cfg, angles)
-    o = flash_attention(q, k, v, causal=causal)
+    o = flash_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     return linear(p.wo, o.reshape(B, S, cfg.n_heads * cfg.head_dim))
 
 
@@ -242,3 +348,36 @@ def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = F.gelu(linear(p.wu, x), approximate="tanh")   # jax.nn.gelu
     return linear(p.wd, h)
+
+
+# ---------------------------------------------------------------------------
+# Chunked softmax cross-entropy (O(chunk·V) memory)
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(hc: torch.Tensor, w_out: torch.Tensor, lc: torch.Tensor,
+                mc: torch.Tensor) -> torch.Tensor:
+    logits = (hc @ w_out).float()                       # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc[..., None])[..., 0]
+    return ((lse - gold) * mc).sum()
+
+
+def chunked_softmax_xent(h: torch.Tensor, w_out: torch.Tensor,
+                         labels: torch.Tensor, *, chunk: int = 512,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h (B, S, d); w_out (d, V); labels (B, S) ints.  Returns the mean NLL
+    over the mask (fp32 0-d).  Each chunk of ``chunk`` positions is
+    rematerialised in the backward (``checkpoint``, the counterpart of the
+    reference's ``nothing_saveable`` scan body), so the (B, chunk, V) logits,
+    never (B, S, V), are the peak activation."""
+    B, S, _ = h.shape
+    labels = labels.long()
+    mask = (torch.ones((B, S), dtype=torch.float32, device=h.device)
+            if mask is None else mask.float())
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i0 in range(0, S, chunk):
+        sl = slice(i0, i0 + chunk)
+        args = (h[:, sl], w_out, labels[:, sl], mask[:, sl])
+        tot = tot + (checkpoint(_xent_chunk, *args, use_reentrant=False)
+                     if torch.is_grad_enabled() else _xent_chunk(*args))
+    return tot / torch.clamp(mask.sum(), min=1.0)

@@ -9,18 +9,22 @@ the card unless the caller passes ``device="cpu"``; its weights come from a
 ``torch.Generator`` on that device, at the reference's scales.  The
 reference's numbers cannot be drawn in torch: to run the port on the
 reference's weights, carry them with ``convert.params_from_reference``.
+``loss_fn`` is the training loss (``steps.make_train_step`` differentiates
+it).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.devices import resolve_device
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import Norm, apply_norm, rope_angles
+from repro_torch.models.layers import (Norm, apply_norm, chunked_softmax_xent,
+                                       rope_angles)
 from repro_torch.models.transformer import NOT_PORTED
 
 DENSE_FAMILIES = ("dense", "moe", "vlm")
@@ -75,7 +79,9 @@ def init_params(cfg, *, seed: int = 0, device=None) -> Model:
 
 
 def _embed(p: Model, tokens: torch.Tensor) -> torch.Tensor:
-    return p.embed[tokens]
+    # F.embedding: its backward on the card sums each row's gradients in a
+    # fixed order (a replayed step is bit-equal)
+    return F.embedding(tokens, p.embed)
 
 
 def _angles_for(cfg, positions: Optional[torch.Tensor], B: int, S: int,
@@ -133,3 +139,18 @@ def decode_step(params: Model, cfg, token, caches: dict, pos: int
                                         caches, pos)
     h = apply_norm(params.final_ln, h, cfg.norm)
     return unembed(params, cfg, h), caches
+
+
+def loss_fn(params: Model, cfg, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(nll + aux, {"nll", "aux"}) of ``batch`` (``tokens``, ``labels``,
+    optional ``loss_mask`` and ``positions``; numpy or torch)."""
+    h, aux = forward(params, cfg, batch["tokens"],
+                     positions=batch.get("positions"))
+    labels = torch.as_tensor(batch["labels"], device=h.device)
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=h.device)
+    nll = chunked_softmax_xent(h, unembed_matrix(params, cfg), labels,
+                               mask=mask)
+    return nll + aux, {"nll": nll, "aux": aux}

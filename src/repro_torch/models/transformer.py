@@ -3,10 +3,13 @@ cached decode.  Port of the dense part of ``repro.models.transformer``.
 
 The reference stacks every layer's leaves on a leading ``(n_layers,)`` dim
 and runs ``lax.scan`` over them; here the layers are an ``nn.ModuleList``
-and the scan is a Python loop.  The KV caches keep the reference's stacked
-layout ``(n_layers, B, S, Hkv, hd)`` and are written in place.  Remat is a
-training concern and is left out; MoE layers and the other families
-(hybrid, encdec, ssm) raise, naming the ROADMAP item that ports them.
+and the scan is a Python loop.  With ``cfg.remat`` and autograd on, each
+layer is rematerialised in the backward (``torch.utils.checkpoint``, the
+counterpart of the reference's ``nothing_saveable`` scan body): a layer
+keeps only its input, and K8 runs again in the recompute.  The KV caches
+keep the reference's stacked layout ``(n_layers, B, S, Hkv, hd)`` and are
+written in place.  MoE layers and the other families (hybrid, encdec, ssm)
+raise, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (MLP, Attention, Norm, apply_norm,
                                        attention, attention_qkv, cache_update,
@@ -64,8 +68,10 @@ def decoder_layer(p: DecoderLayer, x: torch.Tensor, cfg, angles
 def decoder_stack(layers: nn.ModuleList, x: torch.Tensor, cfg, angles
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden, aux); aux is the MoE router loss, 0 for dense."""
+    remat = cfg.remat and torch.is_grad_enabled()
     for p in layers:
-        x = decoder_layer(p, x, cfg, angles)
+        x = (checkpoint(decoder_layer, p, x, cfg, angles, use_reentrant=False)
+             if remat else decoder_layer(p, x, cfg, angles))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -7,7 +7,9 @@ supplies both the query embeddings and the generator.  ``embed`` runs the
 full-sequence forward, whose every layer's attention is the flash-attention
 kernel K8 on the card; ``retrieve`` runs ``PilotANNIndex.search`` (K3 and
 K1); ``generate`` decodes greedily over KV caches.  The model and the index
-must live on one device.
+must live on one device.  The model runs under ``torch.inference_mode()``
+(the search does not: its captured graphs keep their buffers), so a model
+whose parameters require gradients serves as one whose do not.
 """
 
 from __future__ import annotations
@@ -45,11 +47,12 @@ class RagPipeline:
 
     # -- embedding: mean-pooled final hidden state of the LM --------------
     def embed(self, tokens: np.ndarray) -> np.ndarray:
-        h, _ = model_forward(self.params, self.cfg, tokens)
-        emb = h.float().mean(1)
-        emb = emb / torch.linalg.vector_norm(
-            emb, dim=-1, keepdim=True).clamp_min(1e-6)
-        return emb.cpu().numpy()
+        with torch.inference_mode():
+            h, _ = model_forward(self.params, self.cfg, tokens)
+            emb = h.float().mean(1)
+            emb = emb / torch.linalg.vector_norm(
+                emb, dim=-1, keepdim=True).clamp_min(1e-6)
+            return emb.cpu().numpy()
 
     def embed_to_corpus_dim(self, tokens: np.ndarray) -> np.ndarray:
         emb = self.embed(tokens)
@@ -79,23 +82,25 @@ class RagPipeline:
             np.concatenate([context_tokens_for(int(ids[b, 0])),
                             query_tokens[b]])[-query_tokens.shape[1]:]
             for b in range(B)])
-        seq = ctx.shape[1] + self.max_new_tokens
-        caches = init_caches(self.params, self.cfg, B, seq)
-        dev = self.params.device
-        ctx_t = torch.as_tensor(ctx, device=dev).long()
-        # prefill by stepping, as the reference does
-        out = torch.zeros((B, self.max_new_tokens), dtype=torch.int32,
-                          device=dev)
-        tok = ctx_t[:, :1]
-        pos = 0
-        for t in range(1, ctx.shape[1]):
-            _, caches = model_decode(self.params, self.cfg, tok, caches, pos)
-            tok = ctx_t[:, t:t + 1]
-            pos += 1
-        for t in range(self.max_new_tokens):
-            logits, caches = model_decode(self.params, self.cfg, tok, caches,
-                                          pos)
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            out[:, t] = tok[:, 0].to(torch.int32)
-            pos += 1
-        return out.cpu().numpy(), ids
+        with torch.inference_mode():
+            seq = ctx.shape[1] + self.max_new_tokens
+            caches = init_caches(self.params, self.cfg, B, seq)
+            dev = self.params.device
+            ctx_t = torch.as_tensor(ctx, device=dev).long()
+            # prefill by stepping, as the reference does
+            out = torch.zeros((B, self.max_new_tokens), dtype=torch.int32,
+                              device=dev)
+            tok = ctx_t[:, :1]
+            pos = 0
+            for t in range(1, ctx.shape[1]):
+                _, caches = model_decode(self.params, self.cfg, tok, caches,
+                                         pos)
+                tok = ctx_t[:, t:t + 1]
+                pos += 1
+            for t in range(self.max_new_tokens):
+                logits, caches = model_decode(self.params, self.cfg, tok,
+                                              caches, pos)
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                out[:, t] = tok[:, 0].to(torch.int32)
+                pos += 1
+            return out.cpu().numpy(), ids

@@ -790,6 +790,81 @@ def test_flash_attention_kernel_refuses_what_it_cannot_take(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,causal,tol", [
+    (torch.bfloat16, (1, 1024, 1024, 32, 4, 64), True, 3e-2),
+    (torch.bfloat16, (2, 300, 300, 8, 2, 64), True, 3e-2),
+    (torch.float32, (2, 256, 384, 8, 2, 16), False, 1e-4),
+    (torch.float32, (1, 200, 200, 4, 1, 16), True, 1e-4)])
+def test_attention_function_grad_matches_plain_autograd(cuda, dtype, shape,
+                                                         causal, tol):
+    """The training attention (``layers.FlashAttention``: K8 forward, the
+    chunked FlashAttention-2 backward) against ``torch.autograd`` through
+    K8's plain version on the same inputs: (dq, dk, dv) within ``tol``
+    relative Frobenius error (bf16 through the tensor-core kernel at D 64;
+    fp32 with TF32 off).  The backward never calls the plain version."""
+    from repro_torch.models import layers as TL
+    B, Sq, Sk, H, Hkv, D = shape
+    q, k, v = (t.to(cuda) for t in _attn_inputs(B, Sq, Sk, H, Hkv, D, dtype,
+                                                 seed=Sq + D))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)
+                     ).to(dtype).to(cuda)
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    before, before_bf16 = k8.launches, k8.bf16_launches
+    o = TL.flash_attention(qs, ks, vs, causal=causal, chunk=128)
+    assert k8.launches == before + 1
+    assert k8.bf16_launches == before_bf16 + (dtype == torch.bfloat16)
+    got = torch.autograd.grad(o, (qs, ks, vs), do)
+    assert k8.launches == before + 1
+    qp, kp, vp = (t.clone().requires_grad_(True) for t in (q, k, v))
+    want = torch.autograd.grad(TR.flash_attention_ref(qp, kp, vp,
+                                                      causal=causal),
+                               (qp, kp, vp), do)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = float((g.float() - w.float()).norm() / w.float().norm())
+        assert err <= tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights,tol", [("fp32", 1e-4), ("bf16", 3e-2)])
+def test_train_step_on_the_card_matches_cpu(cuda, weights, tol):
+    """The reduced dense model's gradient (head dim 16, GQA 4/2, remat on)
+    on the card against the CPU's from the same weights: every leaf within
+    ``tol`` relative Frobenius error (fp32 weights: measured ~1e-6; bf16:
+    ~1e-2, bf16 products round at other places on the two devices), the
+    loss within 1e-4.  A train step on the card launches K8 twice per
+    layer (the forward and the remat recompute) and no more."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import ShapeSpec, get_config, reduced
+    from repro_torch.data import make_token_pipeline
+    from repro_torch.models import steps as TS
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b")),
+                              n_kv_heads=2, remat=True)
+    batch = make_token_pipeline(cfg, ShapeSpec("smoke", 64, 4, "train"),
+                                seed=0).batch_at(0)
+    cpu_p, _ = TS.init_train_state(cfg, seed=0, device="cpu")
+    if weights == "fp32":
+        cpu_p.float()
+    card_p = copy.deepcopy(cpu_p).to(cuda)
+    grad_step = TS.make_grad_step(cfg)
+    want, mw = grad_step(cpu_p, batch)
+    got, mg = grad_step(card_p, batch)
+    assert abs(float(mg["loss"]) - float(mw["loss"])) <= 1e-4 * float(mw["loss"])
+    for n, w in want.items():
+        g = got[n].float().cpu()
+        assert got[n].dtype == w.dtype
+        err = float((g - w.float()).norm() / w.float().norm())
+        assert err <= tol, (n, err)
+    before = k8.launches
+    TS.make_train_step(cfg)(card_p, adamw_init(card_p), batch)
+    torch.cuda.synchronize()
+    assert k8.launches == before + 2 * cfg.n_layers
+
+
+@pytest.mark.cuda
 def test_model_and_rag_on_the_card(cuda):
     """The reduced dense model of the CPU tests (head dim 16, GQA 4/2)
     through forward, decode and the RAG pipeline on the card, against the
