@@ -2,13 +2,15 @@
 
 ``params_from_reference`` takes the pytree of ``repro.models.init_params``
 as host arrays and returns the port's ``Model`` with the same values, bit
-for bit.  The reference stacks every layer leaf on a leading
-``(n_layers,)`` dim; here each layer is its own module, so the stack is
-unstacked.  bf16 leaves arrive as ``ml_dtypes`` bfloat16 arrays (what
-``np.asarray`` gives for a jax array) or as their uint16 bit patterns;
-both cross as 16-bit patterns.  ``opt_state_from_reference`` carries the
-reference's AdamW state (``{"m", "v", "step"}``, moments shaped like the
-params) onto the port's parameter names, so both sides can start mid-run.
+for bit, for every family.  The reference stacks every layer leaf on a
+leading ``(n_layers,)`` dim (``layers``, ``hybrid.mamba_layers``,
+``encdec.encoder``, ``encdec.decoder``); here each layer is its own
+module, so the stacks are unstacked.  bf16 leaves arrive as
+``ml_dtypes`` bfloat16 arrays (what ``np.asarray`` gives for a jax array)
+or as their uint16 bit patterns; both cross as 16-bit patterns.
+``opt_state_from_reference`` carries the reference's AdamW state (``{"m",
+"v", "step"}``, moments shaped like the params) onto the port's parameter
+names, so both sides can start mid-run.
 """
 
 from __future__ import annotations
@@ -40,26 +42,45 @@ def _leaves(tree: Mapping, prefix: str = ""):
             yield prefix + k, v
 
 
+# the reference's layer stacks (a leading (n_layers,) dim on every leaf
+# under them); the port holds each as an nn.ModuleList of the same name
+STACKS = ("layers.", "hybrid.mamba_layers.", "encdec.encoder.",
+          "encdec.decoder.")
+
+
 def _unstacked(np_tree: Mapping, model: Model) -> Dict[str, torch.Tensor]:
     """{port parameter name: tensor} of a tree shaped like the reference's
-    params, the layer stack cut into ``layers.<i>.``; refuses a tree that
-    does not cover the model's parameters exactly."""
-    leaves = {n: _tensor(a) for n, a in _leaves(np_tree)}
-    out = {n: t for n, t in leaves.items() if not n.startswith("layers.")}
-    L = len(model.layers)
-    for n, t in leaves.items():
-        if n.startswith("layers."):
-            if t.shape[0] != L:
-                raise ValueError(f"{n}: {t.shape[0]} layers stacked, the "
-                                 f"model has {L}")
-            for i in range(L):
-                out[f"layers.{i}.{n[len('layers.'):]}"] = t[i]
+    params, each layer stack cut into ``<stack>.<i>.`` (``hybrid.inv_proj``
+    and ``encdec.enc_pos`` are single parameters and stay whole); refuses a
+    tree that does not cover the model's parameters exactly."""
+    out = {}
+    for n, a in _leaves(np_tree):
+        t = _tensor(a)
+        stack = next((s for s in STACKS if n.startswith(s)), None)
+        if stack is None:
+            out[n] = t
+            continue
+        L = len(model.get_submodule(stack[:-1])) \
+            if _has(model, stack[:-1]) else 0
+        if t.shape[0] != L:
+            raise ValueError(f"{n}: {t.shape[0]} layers stacked, the "
+                             f"model has {L}")
+        for i in range(L):
+            out[f"{stack}{i}.{n[len(stack):]}"] = t[i]
     names = {n for n, _ in model.named_parameters()}
     if set(out) != names:
         raise ValueError(f"reference leaves without a port parameter: "
                          f"{sorted(set(out) - names)}; port parameters "
                          f"without a reference leaf: {sorted(names - set(out))}")
     return out
+
+
+def _has(model: nn.Module, path: str) -> bool:
+    try:
+        model.get_submodule(path)
+    except AttributeError:
+        return False
+    return True
 
 
 def _fill(params: Dict[str, nn.Parameter],

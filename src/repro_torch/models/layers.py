@@ -1,7 +1,6 @@
-"""Neural layers of the dense decoder: norms, RoPE, attention (full-sequence
-through the flash-attention kernel K8, single-token over a KV cache), MLP,
-and the training loss.  Port of the dense subset of
-``repro.models.layers``.
+"""Neural layers: norms, RoPE and M-RoPE, attention (full-sequence and
+cross-attention through the flash-attention kernel K8, single-token over a
+KV cache), MLP, and the training loss.  Port of ``repro.models.layers``.
 
 Parameters are ``nn.Module``s holding the reference's leaves under the
 reference's names (``Linear.w`` is ``(d_in, d_out)`` and the product is
@@ -111,18 +110,32 @@ def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
 
-def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
-                mrope_sections: Optional[Tuple[int, int, int]] = None
-                ) -> torch.Tensor:
-    """positions (B, S) -> angles (B, S, head_dim // 2), float32."""
-    if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE (the vlm family) is not ported yet: ROADMAP Queue A, "
-            "item 9 (the other model families)")
+def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+                 ) -> torch.Tensor:
+    """positions (..., S) -> angles (..., S, head_dim // 2), float32."""
     half = head_dim // 2
     inv = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
                                         device=positions.device) / half))
     return positions.float()[..., None] * inv
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                mrope_sections: Optional[Tuple[int, int, int]] = None
+                ) -> torch.Tensor:
+    """Standard RoPE: positions (B, S).  M-RoPE: positions (3, B, S); the
+    head_dim // 2 frequency channels are cut into ``mrope_sections``
+    (temporal, height, width), each taking its angles from one stream.  The
+    slices are the reference's as written: sections that run past head_dim
+    // 2 (the ``reduced()`` qwen2-vl's (16, 24, 24) at half 8) give stream 0
+    every channel and the others none."""
+    ang = _rope_angles(positions, head_dim, theta)
+    if positions.ndim == 3 and mrope_sections is not None:
+        secs, off = [], 0                             # ang (3, B, S, half)
+        for i, s in enumerate(mrope_sections):
+            secs.append(ang[i, ..., off:off + s])
+            off += s
+        return torch.cat(secs, dim=-1)                # (B, S, half)
+    return ang
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
@@ -283,44 +296,64 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class Attention(nn.Module):
-    """wq, wk, wv, wo (bf16), and qnorm/knorm with ``cfg.qk_norm``."""
+    """wq, wk, wv, wo (bf16), and qnorm/knorm with ``cfg.qk_norm``.  The
+    projections read ``d_in`` features (``cfg.d_model`` unless given:
+    zamba2's shared block reads 2·d_model) and ``wo`` writes d_model."""
 
-    def __init__(self, cfg, *, bias: bool = False, device=None):
+    def __init__(self, cfg, *, d_in: Optional[int] = None, bias: bool = False,
+                 device=None):
         super().__init__()
-        d = cfg.d_model
+        d_in = d_in or cfg.d_model
         hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
         kw = dict(bias=bias, device=device)
-        self.wq = Linear(d, hq, **kw)
-        self.wk = Linear(d, hkv, **kw)
-        self.wv = Linear(d, hkv, **kw)
-        self.wo = Linear(hq, d, **kw)
+        self.wq = Linear(d_in, hq, **kw)
+        self.wk = Linear(d_in, hkv, **kw)
+        self.wv = Linear(d_in, hkv, **kw)
+        self.wo = Linear(hq, cfg.d_model, **kw)
         if cfg.qk_norm:
             self.qnorm = Norm(cfg.head_dim, "rmsnorm", device=device)
             self.knorm = Norm(cfg.head_dim, "rmsnorm", device=device)
 
+    def init_(self, g: torch.Generator) -> None:
+        for lin in (self.wq, self.wk, self.wv, self.wo):
+            lin.init_(g)
+
 
 def attention_qkv(p: Attention, x: torch.Tensor, cfg,
-                  angles: Optional[torch.Tensor]
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                  angles: Optional[torch.Tensor], *, kv: bool = True
+                  ) -> Tuple[torch.Tensor, ...]:
+    """(q, k, v) of ``x``; (q,) alone with ``kv=False`` (a cross-attention
+    query, whose K/V come from elsewhere)."""
     B, S, _ = x.shape
     q = linear(p.wq, x).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.qnorm.w)
+    if angles is not None:
+        q = apply_rope(q, angles)
+    if not kv:
+        return (q,)
     k = linear(p.wk, x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = linear(p.wv, x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = rms_norm(q, p.qnorm.w)
         k = rms_norm(k, p.knorm.w)
     if angles is not None:
-        q = apply_rope(q, angles)
         k = apply_rope(k, angles)
     return q, k, v
 
 
 def attention(p: Attention, x: torch.Tensor, cfg, *, angles=None,
-              causal: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention (prefill).  The reference's ``kv``
-    override (whisper's cross-attention) waits for the encdec family."""
+              causal: bool = True,
+              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> torch.Tensor:
+    """Full-sequence attention (train / prefill).  ``kv`` (k, v), each (B,
+    Sk, Hkv, hd), replaces the self K/V and makes it non-causal: whisper's
+    cross-attention over the encoder memory."""
     B, S, _ = x.shape
-    q, k, v = attention_qkv(p, x, cfg, angles)
+    if kv is None:
+        q, k, v = attention_qkv(p, x, cfg, angles)
+    else:
+        (q,), (k, v) = attention_qkv(p, x, cfg, angles, kv=False), kv
+        causal = False
     o = flash_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     return linear(p.wo, o.reshape(B, S, cfg.n_heads * cfg.head_dim))
 
@@ -340,6 +373,11 @@ class MLP(nn.Module):
             self.wg = Linear(d_model, d_ff, **kw)
         self.wu = Linear(d_model, d_ff, **kw)
         self.wd = Linear(d_ff, d_model, **kw)
+
+    def init_(self, g: torch.Generator) -> None:
+        for name in ("wg", "wu", "wd"):
+            if hasattr(self, name):
+                getattr(self, name).init_(g)
 
 
 def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:

@@ -17,8 +17,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.devices import resolve_device
+from repro_torch.core.engine import _to_tensor
 from repro_torch.models import model as M
-from repro_torch.models.transformer import NOT_PORTED
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 
@@ -34,19 +34,22 @@ def _loss_and_grads(params: M.Model, cfg, batch: Dict
 
 def _split(batch: Dict, m: int):
     """The m microbatches of ``batch``: each array with a leading dim that
-    m divides is cut into m equal runs of rows; others are shared."""
-    if "positions" in batch:
-        raise NotImplementedError(
-            f"splitting M-RoPE positions (the vlm family) {NOT_PORTED}")
+    m divides is cut into m equal runs of rows; others are shared.  M-RoPE
+    ``positions`` (3, B, S) are cut on dim 1, as the reference's
+    ``split_pos`` does."""
 
-    def part(x, i):
-        x = torch.as_tensor(x)
+    def part(x, i, positions=False):
+        x = x if isinstance(x, torch.Tensor) else _to_tensor(x)
+        if positions and x.ndim == 3:
+            n = x.shape[1] // m
+            return x[:, i * n:(i + 1) * n]
         if x.ndim >= 1 and x.shape[0] % m == 0:
             n = x.shape[0] // m
             return x[i * n:(i + 1) * n]
         return x
 
-    return [{k: part(v, i) for k, v in batch.items()} for i in range(m)]
+    return [{k: part(v, i, k == "positions") for k, v in batch.items()}
+            for i in range(m)]
 
 
 def accumulate_grads(params: M.Model, cfg, batch: Dict, microbatches: int
@@ -123,6 +126,7 @@ def make_prefill_step(cfg) -> Callable:
         """Full-sequence forward -> last-token logits (B, 1, V) fp32."""
         with torch.inference_mode():
             h, _ = M.forward(params, cfg, batch["tokens"],
+                             frontend_embeds=batch.get("frontend_embeds"),
                              positions=batch.get("positions"))
             return M.unembed(params, cfg, h[:, -1:])
 

@@ -164,23 +164,6 @@ def test_init_params_scales_and_device_rule():
                 jax.random.PRNGKey(0), _cfgs(2)[0])), tcfg)
 
 
-@pytest.mark.parametrize("arch,what", [("olmoe-1b-7b", "MoE"),
-                                       ("zamba2-1.2b", "hybrid"),
-                                       ("rwkv6-1.6b", "ssm"),
-                                       ("whisper-medium", "encdec")])
-def test_unported_families_raise(arch, what):
-    cfg = TC.reduced(TC.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, item 9"):
-        TM.init_params(cfg, device="cpu")
-
-
-def test_mrope_raises():
-    cfg = TC.reduced(TC.get_config("qwen2-vl-7b"))
-    p = TM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        TM.forward(p, cfg, np.zeros((1, 4), np.int32))
-
-
 # ---------------------------------------------------------------------------
 # layer functions (fp32 weights)
 # ---------------------------------------------------------------------------
@@ -232,8 +215,11 @@ def test_rope_matches_reference(dtype):
     assert got.dtype == tdt
     tol = dict(rtol=ULP_BF16, atol=1e-2) if dtype == "bfloat16" else F32
     np.testing.assert_allclose(_np(got), _np(want), **tol)
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        TL.rope_angles(torch.from_numpy(pos), 16, 1e4, (2, 3, 3))
+    # M-RoPE sections with (B, S) positions: plain RoPE, as the reference
+    np.testing.assert_allclose(
+        _np(TL.rope_angles(torch.from_numpy(pos), 16, 1e4, (2, 3, 3))),
+        _np(JL.rope_angles(jnp.asarray(pos), 16, 1e4, (2, 3, 3))),
+        rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu"])

@@ -164,3 +164,36 @@ def test_generate_with_the_port_s_own_weights(pipelines):
     assert ((ids >= 0) & (ids < trag.index.n)).all()
     np.testing.assert_array_equal(out, again)
     np.testing.assert_array_equal(ids, ids2)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-vl-7b", "zamba2-1.2b",
+                                  "rwkv6-1.6b"])
+def test_generate_with_every_generator_family(pipelines, arch):
+    """Each family's reduced model (its own init) as the generator over the
+    same index: the retrieval is ``index.search`` of its embedding, tokens
+    in the vocabulary, the same answer twice."""
+    _, trag, tok = pipelines
+    cfg = TC.reduced(TC.get_config(arch))
+    rag = TRag(index=trag.index, params=t_init_params(cfg, seed=2,
+                                                      device="cpu"),
+               cfg=cfg, max_new_tokens=3)
+    q = tok[:2] % cfg.vocab_size
+    out, ids = rag.generate(q, _context_for(cfg.vocab_size))
+    again, _ = rag.generate(q, _context_for(cfg.vocab_size))
+    want, _, _ = trag.index.search(rag.embed_to_corpus_dim(q),
+                                   rag.search_params)
+    np.testing.assert_array_equal(ids, want)
+    assert out.shape == (2, 3)
+    assert ((out >= 0) & (out < cfg.vocab_size)).all()
+    np.testing.assert_array_equal(out, again)
+
+
+def test_whisper_is_no_generator(pipelines):
+    """The encoder-decoder needs frames the pipeline cannot feed (as in the
+    reference): embedding a query raises, naming them."""
+    _, trag, tok = pipelines
+    cfg = TC.reduced(TC.get_config("whisper-medium"))
+    rag = TRag(index=trag.index, params=t_init_params(cfg, device="cpu"),
+               cfg=cfg)
+    with pytest.raises(ValueError, match="frontend_embeds"):
+        rag.retrieve(tok[:2])

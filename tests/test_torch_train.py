@@ -397,13 +397,28 @@ def test_opt_state_from_reference_carries_a_mid_run_state():
                                  tp)
 
 
-def test_microbatched_positions_raise():
-    _, tcfg = _cfgs()
-    params, opt = TS.init_train_state(tcfg, seed=0, device="cpu")
+def test_microbatched_mrope_positions_split_on_dim_1():
+    """M-RoPE positions (3, B, S) are split on dim 1: each microbatch gets
+    its own rows of every stream, and the microbatched gradient is the
+    monolithic one (fp32)."""
+    tcfg = TC.reduced(TC.get_config("qwen2-vl-7b"))
+    params, _ = TS.init_train_state(tcfg, seed=0, device="cpu")
+    params.float()
     batch = make_token_pipeline(tcfg, SMOKE_SHAPE).batch_at(0)
-    batch["positions"] = np.zeros((3,) + batch["tokens"].shape, np.int32)
-    with pytest.raises(NotImplementedError, match="Queue A, item 9"):
-        TS.make_train_step(tcfg, microbatches=2)(params, opt, batch)
+    B, S = batch["tokens"].shape
+    base = np.arange(S)[None].repeat(B, 0)
+    batch["positions"] = np.stack([base, base // 3, base + np.arange(B)[:, None]]
+                                  ).astype(np.int32)
+    parts = TS._split(batch, 2)
+    assert parts[1]["positions"].shape == (3, B // 2, S)
+    np.testing.assert_array_equal(parts[1]["positions"].numpy(),
+                                  batch["positions"][:, B // 2:])
+    loss2, g2 = TS.accumulate_grads(params, tcfg, batch, 2)
+    loss1, g1 = TS.accumulate_grads(params, tcfg, batch, 1)
+    np.testing.assert_allclose(float(loss2), float(loss1), rtol=1e-5)
+    for n in g1:
+        np.testing.assert_allclose(g2[n].numpy(), g1[n].numpy(), rtol=1e-3,
+                                   atol=1e-6, err_msg=n)
 
 
 def test_trained_model_serves_as_before():
@@ -434,6 +449,27 @@ def _reduced_train(arch, steps, ckpt_dir=None, seed=0, opt_cfg=None):
         return T.train(arch, steps=steps, ckpt_dir=ckpt_dir, save_interval=5,
                        shape=SMOKE_SHAPE, seed=seed, log_every=100,
                        opt_cfg=opt_cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-vl-7b", "zamba2-1.2b",
+                                  "rwkv6-1.6b", "llama4-scout-17b-a16e"])
+def test_train_runs_every_family(arch):
+    """train(arch) for each non-dense family at its reduced size: finite
+    losses, parameters that moved."""
+    params, history = _reduced_train(arch, steps=3)
+    assert [s for s, _ in history] == [0, 2]
+    assert all(np.isfinite(l) for _, l in history)
+    fresh = TM.init_params(TC.reduced(TC.get_config(arch)), seed=0,
+                           device="cpu")
+    assert any(not torch.equal(a, b) for a, b in zip(params.parameters(),
+                                                     fresh.parameters()))
+
+
+def test_train_refuses_whisper_without_frames():
+    """The token pipeline carries no frames, and the encoder-decoder's
+    forward needs them (the reference's train cannot feed them either)."""
+    with pytest.raises(ValueError, match="frontend_embeds"):
+        _reduced_train("whisper-medium", steps=1)
 
 
 def test_train_loss_decreases():
