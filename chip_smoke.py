@@ -205,6 +205,24 @@ Phases, one line each (any failed check exits non-zero):
                (loss 1e-4, cosine 0.9999).  10a also holds the training
                attention's bf16 gradient at each family shape against
                autograd through the plain version (9a's bar 3e-2).
+ 11. moe_sharded — the mesh-sharded MoE (``models/moe_sharded.py``) on a
+               (data 2, model 4) ``PodMesh`` of the one card (8 shards on
+               ``cuda:0``, as phase 8 puts K 4 shards on it): 11a
+               olmoe-1b-7b's full-width bf16 forward, B 4 x S 256, through
+               the sharded MoE: each data shard's experts, ranks and kept
+               pairs in every layer equal to ``plain_routing`` at C =
+               ``_capacity(T_loc)``, each data shard's output within
+               ``MOE_SHARDED_ULPS`` bf16 ulps of ``moe_ffn`` on the same
+               tokens, K8 16 times, all bf16, and the sharded FFN's ms
+               beside ``moe_ffn``'s; 11b one olmoe train step (4 layers, B 2
+               x S 4,096, as 10c) through it: the loss finite, the step
+               replayed from the same state bit-equal in every leaf,
+               seconds a step beside 10c's and the gradient cosine against
+               the unsharded step (no bar: the capacities differ); 11c the
+               dry run (``launch/dryrun.py``): ``run_anns`` (deep, naive
+               and shardwise) and ``run_cell`` for olmoe train_4k and
+               llama4-scout decode_32k on both production meshes, with the
+               fits flag against this card's memory.
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU branch: without a CUDA
 device the script exits non-zero before printing any result.
@@ -1282,6 +1300,14 @@ RWKV_TRAIN_S = 2048
 # place of K8 must miss them.  9b's bars are held on the same weights in
 # fp32.
 BF16_PLAIN_LOSS_TOL, BF16_PLAIN_COSINE = 1e-3, 0.998
+# phase 11: the sharded MoE's mesh, its forward's batch and the bar on each
+# data shard's output against ``moe_ffn`` on the same tokens, in bf16 ulps
+# of that output's largest magnitude: a token's 8 experts fall on up to 4
+# model shards, whose partial sums round to bf16 before they add, where
+# ``moe_ffn`` adds the 8 slots in one sequence (2.00 ulps read on the
+# H100 80GB HBM3 at 700 W, PERF.md §6)
+MOE_MESH = ((2, 4), ("data", "model"))
+MOE_SHARDED_B, MOE_SHARDED_S, MOE_SHARDED_ULPS = 4, 256, 4
 
 
 def attention_flops(cfg, B: int, S: int) -> float:
@@ -1916,6 +1942,226 @@ def families_train_phase(torch, np, args, counts, dev) -> dict:
         "2,048 for the time limit; olmoe and qwen2-vl at 4 layers: at full "
         "depth their weights, gradients and fp32 moments (~83 and ~91 GB) "
         "exceed the card"}), flush=True)
+    return out
+
+
+def moe_sharded_phase(torch, np, args, counts, dev, step_10c=None) -> dict:
+    """Phase 11: the mesh-sharded MoE on a (data 2, model 4) ``PodMesh`` of
+    the card — 11a olmoe's full-width forward (routing against
+    ``plain_routing`` per data shard, each shard's output against
+    ``moe_ffn``, K8's launches, ms), 11b one 4-layer train step replayed
+    bit-equal (seconds beside 10c's ``step_10c``, gradient cosine against
+    the unsharded step), 11c the dry run's cells."""
+    import dataclasses
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.distributed import PodMesh
+    from repro_torch.data import make_token_pipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.models import forward, init_params
+    from repro_torch.models import moe as TMo
+    from repro_torch.models import moe_sharded as TMS
+    from repro_torch.models import steps as TS
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import AdamWConfig
+
+    arch = "olmoe-1b-7b"
+    cfg = get_config(arch)
+    shape, axes = MOE_MESH
+    card = f"cuda:{torch.cuda.current_device()}"
+    mesh = PodMesh(np.full(shape, card, dtype=object), axes)
+    n_data = shape[0]
+    out = {"mesh": dict(mesh.shape), "devices": card}
+
+    # ---- 11a. the full-width forward through the sharded MoE ------------
+    params = init_params(cfg, seed=args.seed, device=dev)
+    B, S = MOE_SHARDED_B, MOE_SHARDED_S
+    Bl = B // n_data
+    C = TMS._capacity(Bl * S, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    tok = np.random.default_rng(args.seed + 11).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    log, seen = [], []
+
+    def recording(p, x, c):
+        y, aux = TMo.moe_ffn(p, x, c)
+        seen.append((p, x, y))
+        return y, aux
+
+    TMS.set_moe_mesh(mesh, ("data",))
+    try:
+        with torch.inference_mode(), mock.patch.object(
+                TMS, "route", held_routing(torch, TMo.route, cfg.n_experts,
+                                           log)), \
+                mock.patch.object(TF, "moe_ffn", recording):
+            reset_launch_counts()
+            h, _ = forward(params, cfg, tok)
+            torch.cuda.synchronize()
+            counts["moe_sharded"] = c = launch_counts()
+    finally:
+        TMS.set_moe_mesh(None, ())
+    check(bool(torch.isfinite(h).all()), "11a: non-finite hidden states")
+    mism = sum(m for _, m in log)
+    check(len(log) == cfg.n_layers * n_data and not mism,
+          f"11a: {mism} routed pairs differ from the plain capacity rule over "
+          f"{len(log)} shard routings (want {cfg.n_layers * n_data})")
+    check(c["flash_attention"] == cfg.n_layers
+          and c["flash_attention_bf16"] == cfg.n_layers,
+          f"11a: K8 launched {c['flash_attention']} times "
+          f"({c['flash_attention_bf16']} bf16), want {cfg.n_layers}")
+    worst_ulps = worst_rel = 0.0
+    with torch.inference_mode():
+        for p, x, y in seen:
+            for i in range(n_data):
+                want = TMo.moe_ffn(p, x[i * Bl:(i + 1) * Bl], cfg)[0].float()
+                got = y[i * Bl:(i + 1) * Bl].float()
+                ulp = 2.0 ** (float(torch.floor(torch.log2(
+                    want.abs().max()))) - 7)
+                worst_ulps = max(worst_ulps,
+                                 float((got - want).abs().max()) / ulp)
+                worst_rel = max(worst_rel, float((got - want).norm()
+                                                 / want.norm()))
+        p, x, _ = seen[0]
+        plain_ms = time_ms(torch, lambda: TMo.moe_ffn(p, x, cfg), reps=10)
+        TMS.set_moe_mesh(mesh, ("data",))
+        try:
+            sharded_ms = time_ms(torch, lambda: TMo.moe_ffn(p, x, cfg),
+                                 reps=10)
+        finally:
+            TMS.set_moe_mesh(None, ())
+    out["forward"] = dict(
+        B=B, S=S, T_loc=Bl * S, C=C, shard_routings=len(log),
+        dropped_pairs=sum(d for d, _ in log), routing_mismatches=mism,
+        k8=c["flash_attention"], k8_bf16=c["flash_attention_bf16"],
+        worst_ulps=worst_ulps, worst_rel_frob=worst_rel,
+        sharded_ffn_ms=sharded_ms, moe_ffn_ms=plain_ms)
+    print(f"[moe_sharded] 11a {arch} full width, bf16, B {B} x S {S} on a "
+          f"(data 2, model 4) mesh of {card}: routing of {len(log)} shard "
+          f"forwards (T_loc {Bl * S}, C {C}) against plain_routing: "
+          f"{mism} pairs differ, {out['forward']['dropped_pairs']} dropped | "
+          f"each data shard's output against moe_ffn on its tokens: worst "
+          f"{worst_ulps:.2f} bf16 ulps of the output's largest magnitude "
+          f"(bar {MOE_SHARDED_ULPS}), relative Frobenius {worst_rel:.3g} | "
+          f"K8 {c['flash_attention']} launches ({c['flash_attention_bf16']} "
+          f"bf16) | one layer's FFN on B {B} x S {S}: sharded "
+          f"{sharded_ms:.4f} ms, moe_ffn {plain_ms:.4f} ms ({stamp()})",
+          flush=True)
+    check(worst_ulps <= MOE_SHARDED_ULPS,
+          f"11a: a data shard's output is {worst_ulps} bf16 ulps from "
+          f"moe_ffn's, bar {MOE_SHARDED_ULPS}")
+    del params, seen, h, p, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 11b. one train step through the sharded MoE, replayed ---------
+    cfg4 = dataclasses.replace(cfg, n_layers=FAMILY_TRAIN_LAYERS[arch])
+    B2, S2 = FAMILY_TRAIN_B, FAMILY_TRAIN_S
+    batch = make_token_pipeline(cfg4, ShapeSpec("train_4k_card", S2, B2,
+                                                "train"),
+                                seed=args.seed).batch_at(0)
+    opt = AdamWConfig(lr=4e-4, b2=0.95, weight_decay=0.1, grad_clip=1.0,
+                      warmup_steps=1, total_steps=FAMILY_TRAIN_STEPS)
+    params, state = TS.init_train_state(cfg4, seed=args.seed, device=dev)
+    step = TS.make_train_step(cfg4, opt, microbatches=1)
+
+    def snapshot():
+        return ({n: q.detach().clone() for n, q in params.named_parameters()},
+                {k: {n: t.clone() for n, t in state[k].items()} for k in "mv"},
+                state["step"].clone())
+
+    def restore(snap):
+        with torch.no_grad():
+            for n, q in params.named_parameters():
+                q.copy_(snap[0][n])
+        for k in "mv":
+            for n, t in state[k].items():
+                t.copy_(snap[1][k][n])
+        state["step"].copy_(snap[2])
+
+    snap = snapshot()
+    TMS.set_moe_mesh(mesh, ("data",))
+    try:
+        secs = []
+        for _ in range(2):                 # the step, then its replay
+            restore(snap)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts["train_moe_sharded"] = launch_counts()
+            if len(secs) == 1:
+                loss = float(m["loss"])
+                first = snapshot()
+        differ = [n for n, q in params.named_parameters()
+                  if not torch.equal(q, first[0][n])]
+        differ += [f"{k}/{n}" for k in "mv" for n, t in state[k].items()
+                   if not torch.equal(t, first[1][k][n])]
+        del first
+        # the gradient from the initial state, sharded and not
+        restore(snap)
+        del snap, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, g_sh = TS.accumulate_grads(params, cfg4, batch, 1)
+    finally:
+        TMS.set_moe_mesh(None, ())
+    _, g_pl = TS.accumulate_grads(params, cfg4, batch, 1)
+    dot = sum(float((g_sh[n].double() * g_pl[n].double()).sum())
+              for n in g_sh)
+    n_sh = sum(float(g.double().square().sum()) for g in g_sh.values())
+    n_pl = sum(float(g.double().square().sum()) for g in g_pl.values())
+    cosine = dot / (n_sh * n_pl) ** 0.5
+    k8 = counts["train_moe_sharded"]["flash_attention"]
+    out["train"] = dict(n_layers=cfg4.n_layers, B=B2, S=S2, loss=loss,
+                        step_s=secs[0], replay_s=secs[1],
+                        step_10c_s=step_10c, leaves=len(g_sh) * 3 + 1,
+                        n_differing=len(differ), differing=differ[:5],
+                        grad_cosine_vs_unsharded=cosine, k8=k8)
+    print(f"[moe_sharded] 11b {arch} ({cfg4.n_layers} layers, full width), "
+          f"B {B2} x S {S2}, one step through the sharded MoE: loss "
+          f"{loss:.4f}, {secs[0]:.3f} s (replay {secs[1]:.3f} s; 10c's "
+          f"unsharded step {step_10c if step_10c is None else round(step_10c, 3)} s), "
+          f"K8 {k8} launches | replay: {len(differ)} of "
+          f"{out['train']['leaves']} leaves differ | gradient cosine against "
+          f"the unsharded step {cosine:.8f} (no bar: T_loc {S2} takes C "
+          f"{TMS._capacity(S2, cfg.top_k, cfg.n_experts, cfg.capacity_factor)}"
+          f", the whole batch C "
+          f"{TMS._capacity(B2 * S2, cfg.top_k, cfg.n_experts, cfg.capacity_factor)}"
+          f") ({stamp()})", flush=True)
+    check(np.isfinite(loss), f"11b: non-finite loss {loss}")
+    check(not differ, f"11b: the replayed step differs in {len(differ)} "
+          f"leaves, e.g. {differ[:5]}")
+    del params, g_sh, g_pl, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 11c. the dry run on both production meshes ----------------------
+    out["dryrun"] = []
+    t0 = time.perf_counter()
+    for multi_pod in (False, True):
+        for gather in ("naive", "shardwise"):
+            out["dryrun"].append(dryrun.run_anns(multi_pod=multi_pod,
+                                                 gather=gather, verbose=False))
+        for a, sh in (("olmoe-1b-7b", "train_4k"),
+                      ("llama4-scout-17b-a16e", "decode_32k")):
+            out["dryrun"].append(dryrun.run_cell(a, sh, multi_pod=multi_pod,
+                                                 verbose=False))
+    for r in out["dryrun"]:
+        ex, rf = r["accounting"]["extrapolated"], r["roofline"]
+        print(f"[moe_sharded] 11c dryrun {r['arch']} {r['shape']} mesh "
+              f"{r['mesh']}: args {r['memory']['arg_bytes'] / 2**30:.3f} GiB"
+              f", temp <= {r['memory']['temp_bytes'] / 2**30:.3f} GiB, fits "
+              f"{r['fits']} (this card's {r['card_bytes'] / 2**30:.2f} GiB) | "
+              f"per device {ex['flops_per_dev']:.4g} flop, "
+              f"{ex['bytes_per_dev']:.4g} B, explicit collectives "
+              f"{ex['coll_bytes_per_dev']:.4g} B | Tc "
+              f"{rf['t_compute'] * 1e3:.3f} ms, Tm {rf['t_memory'] * 1e3:.3f}"
+              f" ms, Tx {rf['t_collective'] * 1e3:.3f} ms -> "
+              f"{rf['bottleneck']} ({dryrun.HW_LABEL})", flush=True)
+    out["dryrun_s"] = time.perf_counter() - t0
+    print(f"[moe_sharded] 11c dry run of {len(out['dryrun'])} cells in "
+          f"{out['dryrun_s']:.1f} s on the host ({stamp()})", flush=True)
     return out
 
 
@@ -2797,16 +3043,22 @@ def main() -> int:
         ms7 = time_ms(torch, lambda: fused_candidate_merge(*k7_args))
         plain7 = time_ms(torch, lambda: candidate_merge_ref(*k7_args), reps=5,
                          warmup=1)
+        # the device time of the late round, the shape of most launches
+        dev7 = (device_ms(torch, lambda: fused_candidate_merge(*k7_args),
+                          "candidate_merge", fused_candidate_merge, reps=5,
+                          lead=2) if shape == "late round" else None)
         P = props.shape[1]
         bound7 = 1e3 * 8.0 * n * (2 * K + P) / HBM_BYTES_PER_S
         print(f"[kernels] K7 fused_candidate_merge, {shape} (n={n}, K={K}, "
-              f"P={P}) ok: ids and distance bits equal | {ms7:.4f} ms vs "
-              f"plain {plain7:.4f} ms | bound {bound7:.4f} ms (bytes)"
+              f"P={P}) ok: ids and distance bits equal | {ms7:.4f} ms"
+              + (f" (device {fmt_ms(dev7)})" if shape == "late round"
+                 else "")
+              + f" vs plain {plain7:.4f} ms | bound {bound7:.4f} ms (bytes)"
               + (f" | NN-descent 10-NN list recall on 1,000 nodes after "
                  f"{DB.ROUNDS} rounds {lrec:.4f}" if lrec is not None else "")
               + f" ({stamp()})", flush=True)
         k7_rows.append(dict(shape=shape, P=P, ms=ms7, plain_ms=plain7,
-                            bound_ms=bound7))
+                            bound_ms=bound7, device_ms=dev7))
         del k7_args, ids7, dd7, props, dprop
         torch.cuda.empty_cache()
     late = k7_rows[-1]                  # the shape of most of the build's K7
@@ -3570,6 +3822,13 @@ def main() -> int:
     fam_out["decode"] = families_decode_phase(torch, np, args, dev)
     fam_out["train"] = families_train_phase(torch, np, args, counts, dev)
     print(f"[family] {card} | " + json.dumps(fam_out, default=str),
+          flush=True)
+
+    # ---- 11. the mesh-sharded MoE and the dry run ---------------------------
+    moe_out = moe_sharded_phase(
+        torch, np, args, counts, dev,
+        fam_out["train"]["olmoe-1b-7b"]["step_s"])
+    print(f"[moe_sharded] {card} | " + json.dumps(moe_out, default=str),
           flush=True)
 
     # each kernel's launches on the first path that must launch it (K7 on

@@ -13,13 +13,15 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card.  Raises when a CUDA device is asked for and
-    there is none: callers that want the CPU say ``device="cpu"``."""
+    there is none: callers that want the CPU say ``device="cpu"``.
+    ``"meta"`` (shapes and dtypes only, no storage) is accepted by name:
+    the dry run's accounting (``launch/specs.py``) builds on it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "port's plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"device must be cuda, cpu or meta, got {dev}")
     return dev
 
 

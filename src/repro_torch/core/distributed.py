@@ -50,6 +50,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core import multistage as M
 from repro_torch.core import quant
 from repro_torch.core import traversal as T
@@ -277,10 +278,13 @@ def owner_select(parts: Sequence[torch.Tensor],
     """The cross-shard reduction: each element from the contribution of the
     shard that owns it (``parts[s]`` is shard s's, any device; ``owner``
     broadcasts against them and sets the result's device).  A select, so
-    the owner's bits come through unchanged."""
+    the owner's bits come through unchanged.  Recorded in the collective
+    ledger as the all-reduce the reference's psum is (``core/
+    collectives.py``)."""
     out = parts[0].to(owner.device)
     for s in range(1, len(parts)):
         out = torch.where(owner == s, parts[s].to(owner.device), out)
+    collectives.record("all-reduce", collectives.tensor_bytes(out))
     return out
 
 

@@ -119,6 +119,22 @@ def fes_select_ref(queries: torch.Tensor, centroids: torch.Tensor,
     return entry_ids[route].gather(1, idx), sd
 
 
+def fes_select_bruteforce(queries: torch.Tensor, entries: torch.Tensor,
+                          entry_ids: torch.Tensor, valid: torch.Tensor, L: int,
+                          entries_scale: torch.Tensor = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one-block case of Table 2: score ALL entries (no routing) and
+    return the top-L (ids, sq-dists).  ``entries`` (r, C, d) stored fp32,
+    bf16 or int8 (``entries_scale`` (d,) for int8)."""
+    r, C, d_ = entries.shape
+    ev = entries.reshape(r * C, d_).float()
+    if entries_scale is not None:
+        ev = ev * entries_scale.float()
+    d = _xdist(queries.float(), ev).masked_fill(~valid.reshape(1, -1), INF)
+    sd, idx = topk_smallest(d, L)
+    return entry_ids.reshape(-1)[idx], sd
+
+
 def _xdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     an = (a * a).sum(-1)[:, None]
     bn = (b * b).sum(-1)[None, :]

@@ -12,6 +12,7 @@ which is what makes stage-② *refinement* (not re-computation) possible.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
 
 import numpy as np
 
@@ -28,6 +29,13 @@ class SVDReducer:
 
     def rotate(self, x: np.ndarray) -> np.ndarray:
         return np.ascontiguousarray(x.astype(np.float32) @ self.V)
+
+    def split(self, x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(primary, residual): the rotated rows' first ``d_primary`` dims
+        and the rest."""
+        xr = self.rotate(x)
+        return (np.ascontiguousarray(xr[..., : self.d_primary]),
+                np.ascontiguousarray(xr[..., self.d_primary:]))
 
 
 def svd_fit(x: np.ndarray, svd_ratio: float, *, sample: int = 131072,

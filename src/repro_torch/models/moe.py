@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN with sort-based dispatch.  Port of
-``repro.models.moe`` (the single-device ``moe_ffn``; the reference's
-``moe_sharded`` mesh path is not ported).
+``repro.models.moe``.  While a mesh is set (``moe_sharded.set_moe_mesh``)
+``moe_ffn`` hands over to ``moe_sharded.moe_ffn_sharded``, as the
+reference does.
 
 Tokens are routed top-k, argsorted by expert (stable) and gathered into an
 (E, C, d) buffer with capacity C per expert; a token past its expert's
@@ -139,7 +140,10 @@ def route(logits: torch.Tensor, k: int, C: int):
     pe = top_e.reshape(-1)                                   # (T·k,)
     order = torch.sort(pe, stable=True).indices
     se = pe[order]
-    counts = torch.bincount(pe, minlength=E)
+    # (a scatter-add, not bincount: it also runs on meta tensors, which the
+    # dry run's accounting uses)
+    counts = torch.zeros(E, dtype=pe.dtype, device=pe.device).scatter_add_(
+        0, pe, torch.ones_like(pe))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * k, device=pe.device) - starts[se]
     slot_sorted = torch.where(rank < C, se * C + rank,
@@ -164,7 +168,10 @@ def route(logits: torch.Tensor, k: int, C: int):
 def moe_ffn(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y, aux loss).  Top-k routing, capacity dropping,
     experts as three batched products over (E, C, ·), the Switch-style load
-    balance loss."""
+    balance loss.  Under a mesh, ``moe_sharded.moe_ffn_sharded``."""
+    from repro_torch.models import moe_sharded
+    if moe_sharded.moe_mesh() is not None:
+        return moe_sharded.moe_ffn_sharded(p, x, cfg)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
