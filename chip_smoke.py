@@ -319,12 +319,20 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 DEVICE_READS = []
 
 
+def launches(name: str) -> int:
+    """The counter ``name`` of the port's registry (a kernel wrapper's
+    launches, ``kernels.launch_counts``)."""
+    from repro_torch.kernels import launch_counts
+    return launch_counts()[name]
+
+
 def device_ms(torch, fn, name: str, kernel=None, reps: int = 20,
               tries: int = 3, lead: int = 5):
     """Mean device time (ms) per call of ``fn()`` of the kernels whose name
-    holds ``name``, from a torch.profiler trace.  A call launches
-    ``kernel.launches``' delta over a warm call of them (for a library
-    call, ``kernel=None``: the events of a traced call, the most of three).
+    holds ``name``, from a torch.profiler trace.  A call launches the
+    delta of ``kernel``'s count in the registry over a warm call of them
+    (for a library call, ``kernel=None``: the events of a traced call, the
+    most of three).
     The profiler loses the first device events of a trace when the host
     has just run threaded BLAS (the first kernel it holds starts 1–6 ms
     after the first launch, the last one in place; PERF.md PR 19), so each
@@ -346,10 +354,10 @@ def device_ms(torch, fn, name: str, kernel=None, reps: int = 20,
                     and name in e.name)
         return [u for _, u in ev], [t for t, _ in ev]
 
-    before = kernel.launches if kernel is not None else 0
+    before = launches(kernel.__name__) if kernel is not None else 0
     fn()
     torch.cuda.synchronize()
-    per_call = (kernel.launches - before if kernel is not None
+    per_call = (launches(kernel.__name__) - before if kernel is not None
                 else round(max(len(events(lead + 1)[0]) for _ in range(3))
                            / (lead + 1)))
     plain = sum(events(reps)[0]) / 1e3 / reps
@@ -524,11 +532,11 @@ def k8_head_dim_cases(torch, dev, seed: int) -> list:
                 q, k, v = [torch.randn((B_, S_, h, D), generator=g,
                                        device=dev).to(dtype)
                            for S_, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv))]
-                before = flash_attention.bf16_launches
+                before = launches("flash_attention_bf16")
                 got = flash_attention(q, k, v, causal=causal)
                 want = flash_attention_ref(q, k, v, causal=causal)
                 torch.cuda.synchronize()
-                check(flash_attention.bf16_launches == before,
+                check(launches("flash_attention_bf16") == before,
                       f"K8 D {D}: launched the tensor-core kernel")
                 err = float((got.float() - want.float()).abs().max())
                 check(got.dtype == dtype and torch.allclose(
@@ -596,11 +604,11 @@ def rag_phase(torch, np, args, index, counts) -> tuple:
             ((4, 1536, 1024, 32, 4, 128), torch.bfloat16, True, 3e-2),
             ((2, 384, 640, 16, 4, 128), torch.float32, False, 1e-4)):
         q, k, v = qkv(*shape, dtype)
-        before = flash_attention.bf16_launches
+        before = launches("flash_attention_bf16")
         got = flash_attention(q, k, v, causal=causal)
         want = flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        tc = flash_attention.bf16_launches - before
+        tc = launches("flash_attention_bf16") - before
         check(tc == (dtype == torch.bfloat16), f"K8 {shape} {dtype}: "
               f"{tc} tensor-core launches")
         err = float((got.float() - want.float()).abs().max())
@@ -878,17 +886,17 @@ def train_phase(torch, np, args, counts, dev) -> dict:
                                ).to(dtype).requires_grad_(True)
                    for S, h in ((Sq, Hq), (Sk, Hk), (Sk, Hk))]
         do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
-        before, before_bf16 = (flash_attention.launches,
-                               flash_attention.bf16_launches)
+        before, before_bf16 = (launches("flash_attention"),
+                               launches("flash_attention_bf16"))
         o = TL.flash_attention(q, k, v, causal=causal,
                                chunk=cfg.attn_chunk)
         got = torch.autograd.grad(o, (q, k, v), do)
         torch.cuda.synchronize()
-        check(flash_attention.launches == before + 1
-              and flash_attention.bf16_launches == before_bf16 + (
+        check(launches("flash_attention") == before + 1
+              and launches("flash_attention_bf16") == before_bf16 + (
                   dtype == torch.bfloat16),
               f"train attention {dtype}: K8 launched "
-              f"{flash_attention.launches - before} times")
+              f"{launches('flash_attention') - before} times")
         ref_o = flash_attention_ref(q, k, v, causal=causal)
         o32, ref32 = o.detach().float(), ref_o.detach().float()
         o_err = float((o32 - ref32).abs().max())
@@ -946,12 +954,12 @@ def train_phase(torch, np, args, counts, dev) -> dict:
     q, k, v = [torch.randn((B, S, h, D), generator=g, device=dev
                            ).to(torch.bfloat16)
                for h in (H, cfg.n_kv_heads, cfg.n_kv_heads)]
-    before = flash_attention.bf16_launches
+    before = launches("flash_attention_bf16")
     o = flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    check(flash_attention.bf16_launches == before + 1,
+    check(launches("flash_attention_bf16") == before + 1,
           f"K8 forward (B, S) = ({B}, {S}): "
-          f"{flash_attention.bf16_launches - before} tensor-core launches")
+          f"{launches('flash_attention_bf16') - before} tensor-core launches")
     fwd_errs = []
     for i in range(B):
         want = flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
@@ -1361,7 +1369,7 @@ def k8_case(torch, q, k, v, causal: bool, tol: float) -> dict:
     from repro_torch.kernels.ref import flash_attention_ref
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    before = flash_attention.bf16_launches
+    before = launches("flash_attention_bf16")
     got = flash_attention(q, k, v, causal=causal)
     want = flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -1370,7 +1378,7 @@ def k8_case(torch, q, k, v, causal: bool, tol: float) -> dict:
     rel = rel_frob(got, want)
     leak = rel_frob(leaky_attention(torch, q, k, v, causal), want)
     del got, want
-    check(flash_attention.bf16_launches == before + 1,
+    check(launches("flash_attention_bf16") == before + 1,
           f"K8 {tuple(q.shape)}: not on the tensor cores")
     check(ok, f"K8 (B, Sq, Sk, H, Hkv, D) = {(B, Sq, Sk, H, Hkv, D)} "
           f"causal={causal}: max abs err {err}, atol/rtol {tol}")
@@ -2185,12 +2193,12 @@ def open_loop(np, eng, queries, arrivals, mutations=()):
     (requests, their arrival times, [(ticket, time applied)], wall s)."""
     import time as _t
     eng._completions = {}
-    eng._t0 = _t.perf_counter()
+    t0 = eng._now()
     reqs, tickets, applied = [], [], {}
     i = j = 0
     n, m = len(queries), len(mutations)
     while i < n or j < m:
-        now = eng._now()
+        now = eng._now() - t0
         while i < n and arrivals[i] <= now:
             reqs.append(eng.submit(queries[i]))
             i += 1
@@ -2200,7 +2208,7 @@ def open_loop(np, eng, queries, arrivals, mutations=()):
                            else eng.submit_delete(payload))
             j += 1
         worked = eng.pump()
-        t_after = eng._now()
+        t_after = eng._now() - t0
         for t in tickets:
             if t.done and id(t) not in applied:
                 applied[id(t)] = t_after
@@ -2210,9 +2218,11 @@ def open_loop(np, eng, queries, arrivals, mutations=()):
             _t.sleep(min(max(nxt - t_after, 0.0), 5e-4))
     eng.flush()
     eng.flush_mutations()
-    end = eng._now()
+    end = eng._now() - t0
     for t in tickets:
         applied.setdefault(id(t), end)
+    # completions from the loop's start, as the arrivals are
+    eng._completions = {rid: t - t0 for rid, t in eng._completions.items()}
     wall = max([eng._completions.get(r.rid, 0.0) for r in reqs] + [1e-9])
     return reqs, arrivals[:len(reqs)], [(t, applied[id(t)]) for t in tickets], wall
 
@@ -2912,7 +2922,7 @@ def main() -> int:
     from repro_torch.core.multistage import SearchParams
     from repro_torch.core.pipeline import pipelined_search
     from repro_torch.data import VectorDataset, preset_dataset
-    from repro_torch.kernels import (_build, fes_distances,
+    from repro_torch.kernels import (LAUNCH_NAMES, _build, fes_distances,
                                      fused_candidate_merge, fused_expand_merge,
                                      fused_pilot_search, fused_traversal_hop,
                                      launch_counts, ops, reset_launch_counts)
@@ -2972,7 +2982,7 @@ def main() -> int:
     check(counts["build"]["fused_candidate_merge"] == expect_build,
           f"build: K7 launched {counts['build']['fused_candidate_merge']} "
           f"times, expected {expect_build}")
-    check(all(v == 0 for k, v in counts["build"].items()
+    check(all(counts["build"][k] == 0 for k in LAUNCH_NAMES
               if k != "fused_candidate_merge"), "build launched search kernels")
 
     A = index.arrays
@@ -3497,7 +3507,7 @@ def main() -> int:
     # searches replay CUDA graphs, which add their captured launches to the
     # counters at every replay
     n_batches = -(-args.queries // args.batch)
-    none = {k: (0, 0) for k in launch_counts()}
+    none = {k: (0, 0) for k in LAUNCH_NAMES}
     expect = {
         "build": dict(none, fused_candidate_merge=(expect_build, expect_build)),
         "search": dict(none, fused_pilot_search=(n_batches, n_batches),
@@ -3525,8 +3535,7 @@ def main() -> int:
                    allocated_after=torch.cuda.memory_allocated(),
                    peak_before=peak0,
                    peak_during=torch.cuda.max_memory_allocated())
-        prog = index._get_fn(params, baseline, bucket)
-        ids, dists, stats, secs, syncs, run_rounds = [], [], [], 0.0, [], []
+        ids, dists, stats, secs = [], [], [], 0.0
         reset_launch_counts()
         for s in range(0, args.queries, args.batch):
             torch.cuda.synchronize()
@@ -3534,8 +3543,8 @@ def main() -> int:
             i, d, st_ = run(ds.queries[s:s + args.batch], params)
             secs += time.perf_counter() - t0
             ids.append(i), dists.append(d), stats.append(st_)
-            syncs.append(prog.syncs), run_rounds.append(prog.rounds)
         counts[name] = launch_counts()
+        n_batches = len(stats)
         ids, dists = np.concatenate(ids), np.concatenate(dists)
         stats = {k: np.concatenate([x[k] for x in stats]) for k in stats[0]}
         check(ids.shape == (args.queries, 10) and np.isfinite(dists).all()
@@ -3550,9 +3559,10 @@ def main() -> int:
                                     for s in range(0, args.queries, args.batch)]))
                   for k in ("pilot_hops", "final_hops")}
         graphs[name] = dict(
-            qps=args.queries / secs, host_tests_per_batch=float(np.mean(syncs)),
+            qps=args.queries / secs,
+            host_tests_per_batch=counts[name]["search.host_tests"] / n_batches,
             rounds_per_batch=rounds,
-            rounds_run_per_batch=np.mean(run_rounds, 0).tolist(),
+            rounds_run_per_batch=counts[name]["search.rounds"] / n_batches,
             warmup_s=warm_s, memory=mem, cache_stats=index.cache_stats())
         print(f"[{tag}] {name}: recall@10 {rec:.4f} | {args.queries / secs:.1f} "
               f"QPS ({args.queries} queries, batches of {args.batch}, "
@@ -3755,7 +3765,8 @@ def main() -> int:
             per_batch = got[W] == n_batches if W == "fused_pilot_search" \
                 else got[W] >= n_batches
             check(per_batch and got[fes_fn] == n_batches
-                  and all(v == 0 for k, v in got.items() if k not in (W, fes_fn)),
+                  and all(got[k] == 0 for k in LAUNCH_NAMES
+                          if k not in (W, fes_fn)),
                   f"{name}: launches {got}, expected {W} and {fes_fn} per batch")
         check(np.array_equal(results[f"search[{dt}]"][0],
                              results[f"search_per_hop[{dt}]"][0]),
@@ -3836,7 +3847,7 @@ def main() -> int:
     # none), the quantized rows on their own encoding's path; every path's
     # count beside it
     own = {k: next((p for p, e in expect.items() if e[k][0] > 0), None)
-           for k in counts["search"]}
+           for k in LAUNCH_NAMES}
     def launched(c, fn):
         # K8's wrapper counts both of its kernels; the fp32 one is the rest
         return (c[fn] - c["flash_attention_bf16"] if fn == "flash_attention"

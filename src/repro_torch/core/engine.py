@@ -48,6 +48,7 @@ from repro_torch.core import (compiled, csr, fes, graph_build, multistage,
 from repro_torch.core.devices import resolve_device
 from repro_torch.core.multistage import (BATCH_BUCKETS, SearchParams,
                                          pad_to_bucket)
+from repro_torch.runtime import trace
 
 
 # stage-① side arrays of the quantized encodings (scale rows, codebooks)
@@ -400,8 +401,9 @@ class PilotANNIndex:
         # holds a small fixed set of shapes; results slice back
         q, B = pad_to_bucket(q, self.batch_buckets)
         ids, dists, stats = self._get_fn(params, baseline, q.shape[0])(q)
-        return (ids[:B].cpu().numpy(), dists[:B].cpu().numpy(),
-                {k: v[:B].cpu().numpy() for k, v in stats.items()})
+        with trace.span("readback"):
+            return (ids[:B].cpu().numpy(), dists[:B].cpu().numpy(),
+                    {k: v[:B].cpu().numpy() for k, v in stats.items()})
 
     def search(self, queries, params: SearchParams, *, rotated: bool = False
                ) -> Tuple[np.ndarray, np.ndarray, Dict[str, np.ndarray]]:

@@ -21,8 +21,10 @@ reduces to plain greedy search (the ablation of Table 5).
 
 Each entry point is a *program* (``core/traversal.py``):
 ``multistage_program`` / ``baseline_program`` yield their stage-① and
-stage-③ convergence loops, ``multistage_search`` / ``baseline_search``
-run them eagerly, and ``core/compiled.py`` captures them as CUDA graphs.
+stage-③ convergence loops, and a ``traversal.Stage`` marker where each
+stage starts (``stage0`` … ``stage3``; the baseline is one ``stage3``);
+``multistage_search`` / ``baseline_search`` run them eagerly, and
+``core/compiled.py`` captures them as CUDA graphs.
 """
 
 from __future__ import annotations
@@ -232,7 +234,9 @@ def multistage_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
     Optional ``tombstone`` (n+1,) / ``pilot_tombstone`` (nk+1,) deletion
     bitmaps are honoured as in the reference.
     Queries must already be SVD-rotated (the engine handles it).
-    Returns (ids (B, k), dists (B, k), stats)."""
+    Returns (ids (B, k), dists (B, k), stats).  Yields a ``Stage`` marker
+    at the start of each stage that runs; stage ③ holds the top-k."""
+    yield T.Stage("stage0")
     n = arrays["rot_vecs"].shape[0] - 1
     nk = arrays["pilot_to_full"].shape[0] - 1      # compact pilot id space
     pilot_scale = arrays.get("primary_scale")
@@ -272,6 +276,7 @@ def multistage_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
 
     # ---- stage ①: pilot traversal (compact subgraph, primary dims) -----
     if params.use_pilot:
+        yield T.Stage("stage1")
         st1 = yield from T.greedy_program(
             pilot_spec(params), q_primary, arrays["sub_neighbors"],
             arrays["primary"], nk, entry_pilot, vec_scale=pilot_scale,
@@ -289,12 +294,14 @@ def multistage_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
     # ---- stage ②: residual refinement (inherits ①'s visited filter) ----
     seed_id = seed_d = None
     if params.use_refine and params.use_pilot:
+        yield T.Stage("stage2")
         seed_id, seed_d, stats["refine_dist"] = refine_stage(
             arrays, params, queries, cand_id, cand_dp, visited=pilot_visited)
     else:
         stats["refine_dist"] = zeros
 
     # ---- stage ③: final traversal (full graph + vectors) ---------------
+    yield T.Stage("stage3")
     spec3 = final_spec(params)
     if seed_id is not None:
         st3 = yield from T.greedy_program(
@@ -330,7 +337,9 @@ def baseline_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
     """Single-stage greedy search on the full index (the HNSW-CPU baseline),
     with the same ``stats`` schema as ``multistage_search``: the skipped
     stages report zero, the coarse entry-layer scan is charged as
-    ``fes_dist`` and included in ``total_cpu_dist``."""
+    ``fes_dist`` and included in ``total_cpu_dist``.  Its one stage is
+    marked ``stage3``."""
+    yield T.Stage("stage3")
     n = arrays["rot_vecs"].shape[0] - 1
     slots, entry_cost = hierarchical_entries(arrays, queries, params)
     entries = arrays["coarse_ids"][slots]

@@ -65,6 +65,7 @@ from repro_torch.core.multistage import (SearchParams, bucket_size,
                                          fes_entries, final_spec,
                                          refine_stage)
 from repro_torch.core.multistage import pilot_spec as _pilot_spec
+from repro_torch.runtime import trace
 
 INF = float("inf")
 TOMB_KEYS = ("pilot_tombstone", "tombstone")   # a mutable index's bitmaps
@@ -94,16 +95,19 @@ def pilot_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
     """FES and stage ① (on the card K3–K5 through ``ops.fes_select``, then
     K1 or K2): ``(cand_id, cand_d, visited)``, the pilot beam in compact
     ids with its stage-① distances and the visited filter.  ``tombs``:
-    ``()`` or ``(pilot_tomb,)``."""
+    ``()`` or ``(pilot_tomb,)``.  Marks ``stage0`` and ``stage1``."""
+    yield T.Stage("stage0")
     arrays = _with_tombs(arrays, tombs)
     nk = arrays["pilot_to_full"].shape[0] - 1
     scale, codebook = arrays.get("primary_scale"), arrays.get("primary_codebook")
     dp = quant.primary_dim(arrays["primary"], scale, codebook=codebook)
     qp = queries[:, :dp].contiguous()
+    entries = fes_entries(arrays, params, qp)
+    yield T.Stage("stage1")
     st1 = yield from T.greedy_program(
         _pilot_spec(params), qp, arrays["sub_neighbors"], arrays["primary"],
-        nk, fes_entries(arrays, params, qp), vec_scale=scale,
-        vec_codebook=codebook, tombstone=arrays.get("pilot_tombstone"))
+        nk, entries, vec_scale=scale, vec_codebook=codebook,
+        tombstone=arrays.get("pilot_tombstone"))
     return st1.cand_id, st1.cand_d, st1.visited
 
 
@@ -112,7 +116,8 @@ def cpu_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
                 cand_dp: torch.Tensor, visited: torch.Tensor,
                 *tombs: torch.Tensor, hooks=None) -> T.Program:
     """Stages ② and ③ from a pilot boundary: ``(ids, dists)``.  ``tombs``:
-    ``()`` or ``(pilot_tomb, tomb)``.
+    ``()`` or ``(pilot_tomb, tomb)``.  Marks ``stage2`` and ``stage3``
+    (which holds the top-k).
 
     ``hooks`` (a ``distributed.ShardHooks``: the pod-sharded stage pair)
     scores the cold rows through the shards that own them: ``dist_full`` /
@@ -122,6 +127,7 @@ def cpu_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
     so stage ③ sentinel-masks the rows ``nbr`` returns (value-wise, which
     equals gathering from the masked table).  ``arrays``' cold keys are then
     read only at the sentinel entries, which are masked."""
+    yield T.Stage("stage2")
     arrays = _with_tombs(arrays, tombs)
     tomb = arrays.get("tombstone")
     if hooks is None:
@@ -136,6 +142,7 @@ def cpu_program(arrays: Dict[str, torch.Tensor], params: SearchParams,
                                       cand_dp, visited=visited,
                                       dist_full_fn=dist_full,
                                       dist_res_fn=dist_res)
+    yield T.Stage("stage3")
     st3 = yield from T.greedy_program(
         final_spec(params), queries, arrays["full_neighbors"],
         arrays["rot_vecs"], n,
@@ -465,7 +472,8 @@ def pipelined_search(arrays: Dict[str, torch.Tensor], params: SearchParams,
             if card:
                 cpu_s.wait_event(ready)
             ids, dists = cpu_stages(qj, *poj)
-            results[j] = (ids.cpu().numpy(), dists.cpu().numpy())
+            with trace.span("readback"):
+                results[j] = (ids.cpu().numpy(), dists.cpu().numpy())
         if record_into is not None:
             record_into.append({"batch": j, "t_pilot_dispatch": t_disp,
                                 "t_cpu_start": t_cpu, "t_done": now()})

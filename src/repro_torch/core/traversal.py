@@ -18,11 +18,13 @@ The traversal returns per-query distance-computation counts — the unit in
 which the paper reports all of its complexity results.
 
 A search runs as a *program*: a generator that yields each loop it runs to
-convergence (``Loop``) and gets the converged state back.  ``run_program``
-drives one eagerly; ``core/compiled.py`` captures the code between the
-loops, and ``CHUNK`` rounds of each loop, as CUDA graphs.  Both run a loop
-the same way (``run_to_convergence``): ``CHUNK`` rounds, then one host
-test.
+convergence (``Loop``) and gets the converged state back, and a ``Stage``
+marker at the start of each of its stages.  ``run_program`` drives one
+eagerly, in a span per stage (``runtime/trace.py``); ``core/compiled.py``
+captures the code between the loops, and ``CHUNK`` rounds of each loop, as
+CUDA graphs, with a timing event at each marker.  Both run a loop the same
+way (``run_to_convergence``): ``CHUNK`` rounds, then one host test, each
+counted (``search.host_tests``, ``search.rounds``).
 
 Ties: ``jnp.argsort`` is stable, so every sort here is
 ``torch.sort(stable=True)``; ``jnp.lexsort((d, ids))`` becomes two stable
@@ -31,14 +33,16 @@ sorts (by d, then by id).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from functools import partial
-from typing import Callable, Generator, NamedTuple, Optional, Tuple
+from typing import Callable, Generator, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core import bloom as B
 from repro_torch.core import quant
+from repro_torch.runtime import trace
 
 INF = float("inf")
 
@@ -310,9 +314,18 @@ class Loop(NamedTuple):
     max_rounds: int
 
 
-# a search program: yields its loops, is sent each loop's final state, and
-# returns its result
-Program = Generator[Loop, SearchState, object]
+class Stage(NamedTuple):
+    """The marker a search program yields where one of its stages starts
+    (``stage0`` … ``stage3``); it is sent ``None`` back.  What follows, up
+    to the next marker, is that stage's work: ``run_program`` runs it in
+    the span ``repro_torch.<name>``, a captured graph records a timing
+    event at the marker (``core/compiled.py``)."""
+    name: str
+
+
+# a search program: yields its loops and stage markers, is sent each loop's
+# final state (``None`` for a marker), and returns its result
+Program = Generator[Union[Loop, Stage], Optional[SearchState], object]
 
 
 def greedy_search(spec: TraversalSpec, queries: torch.Tensor,
@@ -392,13 +405,23 @@ def greedy_program(spec: TraversalSpec, queries: torch.Tensor,
 
 def run_program(program: Program):
     """Drive a search program eagerly: each loop it yields runs through
-    ``run_to_convergence``.  Returns the program's result."""
-    try:
-        loop = next(program)
-        while True:
-            loop = program.send(run_to_convergence(*loop))
-    except StopIteration as done:
-        return done.value
+    ``run_to_convergence``, each stage in its span (``Stage``).  Returns
+    the program's result."""
+    stage = None
+    with contextlib.ExitStack() as span:
+        try:
+            item = next(program)
+            while True:
+                if isinstance(item, Stage):
+                    span.close()
+                    stage = item.name
+                    span.enter_context(trace.span(stage))
+                    item = program.send(None)
+                else:
+                    item = program.send(run_to_convergence(*item,
+                                                           stage=stage))
+        except StopIteration as done:
+            return done.value
 
 
 def pending(state: SearchState, n: int) -> torch.Tensor:
@@ -419,17 +442,24 @@ def chunk_sizes(max_rounds: int, chunk: int):
 
 
 def run_to_convergence(round_fn, state: SearchState, n: int,
-                       max_rounds: int) -> SearchState:
+                       max_rounds: int, stage: Optional[str] = None
+                       ) -> SearchState:
     """Apply ``round_fn`` until no query has an unchecked candidate, at most
     ``max_rounds`` times: while a host test finds work, a chunk of
     ``CHUNK`` rounds — one host sync per chunk.  Rounds past a query's
     convergence are fixed points, so the result is the one a test before
-    every round gives."""
+    every round gives.  Counts each test (``search.host_tests``; in a
+    stage, in the span ``<stage>.test``) and each round run
+    (``search.rounds``)."""
     for m in chunk_sizes(max_rounds, CHUNK):
-        if not bool(pending(state, n)):
+        trace.count("search.host_tests")
+        with trace.span(stage and f"{stage}.test"):
+            work = bool(pending(state, n))
+        if not work:
             break
         for _ in range(m):
             state = round_fn(state)
+        trace.count("search.rounds", m)
     return state
 
 

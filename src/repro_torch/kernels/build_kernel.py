@@ -7,8 +7,8 @@ reference's ``MAX_ID_EXACT`` cap (ids as fp32 sort keys, n < 2**24) is a
 TPU artefact and is dropped: the CUDA kernel keys on the int32 id itself.
 
 The wrapper runs the kernel for CUDA tensors and ``kernels/ref.
-candidate_merge_ref`` for CPU tensors; it counts its launches in
-``fused_candidate_merge.launches``.
+candidate_merge_ref`` for CPU tensors; it counts its launches in the
+counter registry (``runtime/trace.py``) as ``fused_candidate_merge``.
 
 Bound and design (details in the source): bytes — 8·(2K + P) per row.  One
 warp per row orders and dedupes its K incumbents; when they hold K distinct
@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import candidate_merge_ref
+from repro_torch.runtime import trace
 
 
 def _lib():
@@ -74,8 +75,6 @@ def fused_candidate_merge(cand_ids: torch.Tensor, cand_d: torch.Tensor,
                              _build.ptr(pd), _build.ptr(oid), _build.ptr(od),
                              B, K, P, n, W, _build.stream_of(ci))
     _build.check(lib, rc, "candidate_merge launch")
-    fused_candidate_merge.launches += 1
+    trace.count("fused_candidate_merge")
     return oid, od
 
-
-fused_candidate_merge.launches = 0

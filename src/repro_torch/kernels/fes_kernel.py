@@ -16,7 +16,7 @@ kernels, one wrapper and one launch counter each:
 
 Each wrapper runs its kernel for CUDA tensors and ``kernels/ref.
 fes_distances_ref`` for CPU tensors, and counts its launches in
-``<wrapper>.launches``.
+the counter registry (``runtime/trace.py``) under the wrapper's name.
 
 Bound and design (details in the source): the bytes, dominated by the
 (r, QC, C) output, bound all three at the main path's shape, where 31 of
@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fes_distances_ref
+from repro_torch.runtime import trace
 
 # kernel encoding codes (``Enc`` in csrc/fes.cu)
 ENCODINGS = ("float32", "bfloat16", "int8", "int4")
@@ -127,7 +128,7 @@ def fes_distances(q_grouped: torch.Tensor, entries: torch.Tensor, *,
     if scale is not None:
         scale = scale.float().contiguous()
     out = _tile_launch(q_grouped, entries, _DENSE[entries.dtype], scale, d)
-    fes_distances.launches += int(out.numel() > 0)
+    trace.count("fes_distances", int(out.numel() > 0))
     return out
 
 
@@ -145,7 +146,7 @@ def fes_int4_distances(q_grouped: torch.Tensor, entries: torch.Tensor,
                          f"{tuple(scale.shape)}")
     out = _tile_launch(q_grouped, entries, ENCODINGS.index("int4"),
                        scale.float().contiguous(), d)
-    fes_int4_distances.launches += int(out.numel() > 0)
+    trace.count("fes_int4_distances", int(out.numel() > 0))
     return out
 
 
@@ -178,10 +179,6 @@ def fes_pq_distances(q_grouped: torch.Tensor, entries: torch.Tensor,
                               _build.ptr(out), r, QC, C, d, m, ksub,
                               _build.stream_of(q))
     _build.check(lib, rc, "fes_pq_distances launch")
-    fes_pq_distances.launches += 1
+    trace.count("fes_pq_distances")
     return out
 
-
-fes_distances.launches = 0
-fes_int4_distances.launches = 0
-fes_pq_distances.launches = 0

@@ -11,8 +11,9 @@ rows and keys itself.
 
 The wrapper launches a kernel for CUDA tensors, chosen by dtype and head
 dim, and runs ``kernels/ref.flash_attention_ref`` for CPU tensors.  It
-counts every launch in ``flash_attention.launches`` and the tensor-core
-kernel's (bf16 at D 64 or 128) in ``flash_attention.bf16_launches``.
+counts every launch in the counter registry (``runtime/trace.py``) as
+``flash_attention`` and the tensor-core kernel's (bf16 at D 64 or 128)
+as ``flash_attention_bf16``.
 
 Bound and design (details in the source): at the RAG path's shape the
 operations bound it (2·B·H·S·(S+1)·D on the bf16 tensor cores).  bf16 runs
@@ -40,6 +41,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.runtime import trace
 
 HEAD_DIMS = (16, 32, 64, 96, 128)            # the kernels' template D
 TENSOR_CORE_HEAD_DIMS = (64, 128)            # bf16 on the tensor cores
@@ -91,11 +93,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _DTYPES[q.dtype], B, Sq, Sk, H, Hkv, D, int(causal),
         1.0 / math.sqrt(D), _build.stream_of(q))
     _build.check(lib, rc, "flash_attention launch")
-    flash_attention.launches += 1
+    trace.count("flash_attention")
     if q.dtype == torch.bfloat16 and D in TENSOR_CORE_HEAD_DIMS:
-        flash_attention.bf16_launches += 1
+        trace.count("flash_attention_bf16")
     return o
 
-
-flash_attention.launches = 0
-flash_attention.bf16_launches = 0

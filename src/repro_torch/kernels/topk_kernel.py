@@ -9,8 +9,8 @@ their own merge); ``chip_smoke.py`` holds it against its plain version at
 stage-① shapes.
 
 The wrapper runs the kernel for CUDA tensors and ``kernels/ref.
-expand_merge_ref`` for CPU tensors; it counts its launches in
-``fused_expand_merge.launches``.
+expand_merge_ref`` for CPU tensors; it counts its launches in the
+counter registry (``runtime/trace.py``) as ``fused_expand_merge``.
 
 Bound and design (details in the source): bytes, dominated by the
 (B, R, d) neighbour rows.  One block per query: one warp per candidate
@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import expand_merge_ref
+from repro_torch.runtime import trace
 
 # neighbour-vector encoding codes (``Enc`` in csrc/topk.cu)
 _ENCODINGS = {torch.float32: 0, torch.bfloat16: 1}
@@ -100,8 +101,6 @@ def fused_expand_merge(q: torch.Tensor, nvecs: torch.Tensor,
                             (ni, fr, bid, bd, bck, oid, od, ock)),
                           B, d, R, ef, n, W, _build.stream_of(qf))
     _build.check(lib, rc, "expand_merge launch")
-    fused_expand_merge.launches += 1
+    trace.count("fused_expand_merge")
     return oid, od, ock
 
-
-fused_expand_merge.launches = 0

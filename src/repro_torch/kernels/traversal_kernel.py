@@ -12,7 +12,8 @@ kernel builds the per-query lookup table).
 
 Both wrappers run the kernel for CUDA tensors and the plain version beside
 it (``kernels/ref.py``) for CPU tensors; there is no fallback from one to the
-other.  Each counts its launches in ``<wrapper>.launches``.
+other.  Each counts its launches in the counter
+registry (``runtime/trace.py``) under its name.
 
 Bound and design (details in the source): bytes — the neighbour-id rows of
 the expanded candidates and the encoded vector rows of the fresh ones
@@ -54,6 +55,7 @@ from repro_torch.core import quant
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (pad_query, pad_scale, pilot_search_ref,
                                      traversal_hop_ref)
+from repro_torch.runtime import trace
 
 # kernel encoding codes (``Enc`` in csrc/traversal.cu)
 ENCODINGS = ("float32", "bfloat16", "int8", "int4", "pq")
@@ -235,7 +237,7 @@ def fused_traversal_hop(q: torch.Tensor, nbr_table: torch.Tensor,
         q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited, n,
         width=width, visited_mode=visited_mode, rounds=1, want_fresh=True,
         vec_scale=vec_scale, vec_codebook=vec_codebook, tombstone=tombstone)
-    fused_traversal_hop.launches += int(q.shape[0] > 0)
+    trace.count("fused_traversal_hop", int(q.shape[0] > 0))
     return oid, od, ock, ovis, fresh
 
 
@@ -266,9 +268,6 @@ def fused_pilot_search(q: torch.Tensor, nbr_table: torch.Tensor,
         width=width, visited_mode=visited_mode, rounds=rounds,
         want_fresh=False, vec_scale=vec_scale, vec_codebook=vec_codebook,
         tombstone=tombstone)
-    fused_pilot_search.launches += int(q.shape[0] > 0)
+    trace.count("fused_pilot_search", int(q.shape[0] > 0))
     return oid, od, ock, ovis, cnt[:, 0], cnt[:, 1], cnt[:, 2]
 
-
-fused_traversal_hop.launches = 0
-fused_pilot_search.launches = 0

@@ -46,6 +46,22 @@
 Every request ends in exactly one terminal state (``completed``,
 ``rejected`` or ``expired``).  Results are the stage pair's, which equal
 ``index.search``'s bit for bit at the same bucket.
+
+**One clock.**  The queue (enqueue times, deadlines, expiry), the
+heartbeats and the engine's own timestamps (dispatch, drain, completion,
+``batch_records``) read one function: the injected ``clock`` or
+``time.perf_counter``.  So a request's latency splits exactly, and at each
+drain the engine adds, for every request it completes, to the counters of
+``runtime/trace.py`` (integer microseconds of that clock, always on):
+``engine.queued_us`` (enqueue → dispatch: the wait for a batch to form),
+``engine.in_flight_us`` (dispatch → the start of its drain: the pilot stage
+and the wait behind the batches ahead) and ``engine.drain_us`` (drain start
+→ completion: the CPU stages, the readback and the segment merge), and 1
+to ``engine.requests``.  While tracing is on, ``pump``'s work runs in the
+spans ``repro_torch.engine.dispatch`` and ``.drain`` (with the batch's
+sequence number, ``batch``), ``.expire`` (while requests are pending) and
+``.mutations`` (while mutations are), and the copies of results to the
+host in ``repro_torch.readback``.
 """
 
 from __future__ import annotations
@@ -65,6 +81,7 @@ from repro_torch.core.distributed import ShardedSegmentedIndex
 from repro_torch.core.pipeline import degrade_params, split_stages
 from repro_torch.core.segments import SegmentedIndex
 from repro_torch.runtime.chaos import ChaosError
+from repro_torch.runtime import trace
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor, RestartPolicy
 from repro_torch.serving.batching import BatchingQueue, Request
 from repro_torch.serving.semantic_cache import SemanticCache
@@ -141,10 +158,11 @@ class ThroughputEngine:
                  clock: Optional[Callable[[], float]] = None,
                  fault_injector=None):
         self.index = index
-        # an injected clock (runtime.chaos.SimClock) puts the queue, expiry
-        # and batch timestamps on one deterministic timeline; a
-        # runtime.chaos.FaultInjector is consulted at the decision points
-        self._clock = clock
+        # the one clock of the queue, expiry, heartbeats and the engine's
+        # timestamps; an injected one (runtime.chaos.SimClock) makes that
+        # timeline deterministic.  A runtime.chaos.FaultInjector is
+        # consulted at the decision points
+        self._clock = clock if clock is not None else time.perf_counter
         self._fault_injector = fault_injector
         self.segments: Optional[SegmentedIndex] = \
             index if isinstance(index, SegmentedIndex) else None
@@ -168,9 +186,8 @@ class ThroughputEngine:
             self._cpu_stream = torch.cuda.Stream(dev)
         self._generation = -1
         self._build_stages()
-        qclock = clock if clock is not None else time.monotonic
         self.queue = BatchingQueue(sp.buckets[-1], max_wait_s=sp.max_wait_s,
-                                   clock=qclock,
+                                   clock=self._clock,
                                    max_pending=sp.max_pending)
         # shard liveness: one heartbeat per shard; a shard quiet past the
         # timeout is declared dead and the index fails over to the
@@ -179,9 +196,9 @@ class ThroughputEngine:
         if self.sharded is not None:
             self.heartbeats = HeartbeatMonitor(
                 [f"shard:{i}" for i in range(self.sharded.sp.n_shards)],
-                timeout_s=sp.heartbeat_timeout_s, clock=qclock)
-        # rolling SLO telemetry: recent completed-request latencies (queue
-        # clock) and batch service times drive ``_should_degrade``
+                timeout_s=sp.heartbeat_timeout_s, clock=self._clock)
+        # rolling SLO telemetry: recent completed-request latencies and
+        # batch service times drive ``_should_degrade``
         self._lat_window: Deque[float] = deque(maxlen=max(8, sp.slo_window))
         self._svc_window: Deque[float] = deque(maxlen=32)
         self.cache: Optional[SemanticCache] = None
@@ -192,7 +209,7 @@ class ThroughputEngine:
                                        device=dev)
         # in-flight batches: (requests, padded rotated queries, pilot
         # outputs, event after the pilot stage or None, dispatch timestamp,
-        # earliest deadline, degraded rung?)
+        # earliest deadline, degraded rung?, sequence number)
         self._inflight: List[Tuple] = []
         # one upsert queue per shard (one on a single device); ``seq``
         # keeps the global submission order across them
@@ -207,7 +224,6 @@ class ThroughputEngine:
             max_backoff_s=max(sp.mutation_backoff_s, 1e-9) * 64)
             for _ in range(nq)]
         self._mut_not_before = [0.0] * nq
-        self._t0 = time.perf_counter()
         self._completions: Dict[int, float] = {}      # rid -> done timestamp
         self.stats: Dict[str, Any] = {
             "requests": 0, "batches": 0, "bucket_hist": {},
@@ -285,9 +301,7 @@ class ThroughputEngine:
 
     # -- clock ------------------------------------------------------------
     def _now(self) -> float:
-        if self._clock is not None:
-            return self._clock()          # injected timeline (SimClock)
-        return time.perf_counter() - self._t0
+        return self._clock()
 
     def _on(self, stream):
         return torch.cuda.stream(stream) if self._card \
@@ -317,6 +331,9 @@ class ThroughputEngine:
     # -- mutation entry ------------------------------------------------------
     def _mutations_pending(self) -> bool:
         return any(self._mut_queues)
+
+    def _mutation_span(self) -> Optional[str]:
+        return "engine.mutations" if self._mutations_pending() else None
 
     def submit_upsert(self, vectors: np.ndarray,
                       shard: Optional[int] = None) -> MutationTicket:
@@ -559,13 +576,14 @@ class ThroughputEngine:
             self.stats["degraded_batches"] += 1
         dl = min((r.deadline for r in reqs if r.deadline is not None),
                  default=None)
-        self._inflight.append((reqs, qr, po, ready, t, dl, degraded))
+        self._inflight.append((reqs, qr, po, ready, t, dl, degraded,
+                               self.stats["batches"]))
         self.stats["batches"] += 1
         hist = self.stats["bucket_hist"]
         hist[nb] = hist.get(nb, 0) + 1
 
     def _drain_oldest(self) -> None:
-        reqs, qr, po, ready, t_disp, dl, degraded = self._inflight.pop(0)
+        reqs, qr, po, ready, t_disp, dl, degraded, _ = self._inflight.pop(0)
         if self._fault_injector is not None:
             self._fault_injector.perturb_stage()  # slow_executable window
         t_cpu = self._now()
@@ -576,21 +594,28 @@ class ThroughputEngine:
             if ready is not None:
                 self._cpu_stream.wait_event(ready)
             ids, dists = cpu_call(qr, *po)        # po donated here
-            ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
+            with trace.span("readback"):
+                ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
         if self.segments is not None:
             # exact cross-segment merge: base positional ids -> global ids,
             # delta top-k folded in, deletes since dispatch filtered
             ids, dists, _ = self.segments.merge_with_deltas(
                 qr, ids, dists, self.params.k, rung)
         t_done = self._now()
-        qnow = self.queue.clock()
+        us_disp, us_cpu, us_done = (round(1e6 * t)
+                                    for t in (t_disp, t_cpu, t_done))
+        queued = 0
         for i, r in enumerate(reqs):
             r.complete((ids[i], dists[i]))
             self.stats["completed"] += 1
             self._completions[r.rid] = t_done
-            self._lat_window.append(qnow - r.enqueued_at)
+            self._lat_window.append(t_done - r.enqueued_at)
+            queued += us_disp - round(1e6 * r.enqueued_at)
             if self.cache is not None:
                 self.cache.insert(r.payload, r.result)
+        trace.add({"engine.requests": len(reqs), "engine.queued_us": queued,
+                   "engine.in_flight_us": len(reqs) * (us_cpu - us_disp),
+                   "engine.drain_us": len(reqs) * (us_done - us_cpu)})
         self._svc_window.append(t_done - t_disp)
         self.stats["batch_records"].append(
             {"bucket": int(qr.shape[0]), "n_real": len(reqs),
@@ -608,20 +633,25 @@ class ThroughputEngine:
         Returns False when there was nothing to do."""
         sp = self.serve_params
         self._check_shard_health()
-        expired = self.queue.expire_due()
+        with trace.span("engine.expire" if self.queue.pending else None):
+            expired = self.queue.expire_due()
         self._sync_queue_counters()
         stalled = (self._fault_injector is not None
                    and self._fault_injector.dispatch_stalled())
         if (not stalled and len(self._inflight) < sp.depth
                 and self.queue.ready()):
-            self._dispatch()
+            with trace.span("engine.dispatch", batch=self.stats["batches"]):
+                self._dispatch()
             return True
         if self._inflight:
-            self._drain_oldest()
-            self._apply_mutations(sp.mutations_per_pump)
+            with trace.span("engine.drain", batch=self._inflight[0][-1]):
+                self._drain_oldest()
+            with trace.span(self._mutation_span()):
+                self._apply_mutations(sp.mutations_per_pump)
             return True
-        if self._apply_mutations(sp.mutations_per_pump):
-            return True
+        with trace.span(self._mutation_span()):
+            if self._apply_mutations(sp.mutations_per_pump):
+                return True
         if self.cache is not None and self.cache.maintenance_pending:
             if self.cache.maintain():
                 self.stats["cache_maintenance"] += 1
@@ -665,8 +695,7 @@ class ThroughputEngine:
         records_before = len(self.stats["batch_records"])
         hist_before = dict(self.stats["bucket_hist"])
         self._completions = {}
-        self._t0 = time.perf_counter()
-        t_start = self._now()               # 0.0 unless a clock is injected
+        t_start = self._now()
         reqs: List[Request] = []
         i = 0
         while i < n:

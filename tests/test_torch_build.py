@@ -27,7 +27,7 @@ from repro_torch.core import device_build as TDB
 from repro_torch.core import graph_build as TGB
 from repro_torch.core.engine import brute_force_topk, recall_at_k
 from repro_torch.data import synthetic_vectors
-from repro_torch.kernels import build_kernel
+from repro_torch.kernels import build_kernel, launch_counts
 
 # Small tensors and many ops: one intra-op thread is faster, and leaves the
 # cores to the other pytest workers of a parallel run.
@@ -96,9 +96,9 @@ def test_candidate_merge_matches_reference(case, seed):
 
 def test_candidate_merge_wrapper_counts_only_kernel_launches():
     cid, cd, pid, pd_, n = _merge_case(0)
-    before = build_kernel.fused_candidate_merge.launches
+    before = launch_counts()["fused_candidate_merge"]
     _port_merge(cid, cd, pid, pd_, n)
-    assert build_kernel.fused_candidate_merge.launches == before
+    assert launch_counts()["fused_candidate_merge"] == before
 
 
 def _near_tie_only(got_i, want_i, want_d, rel=1e-5):

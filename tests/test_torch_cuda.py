@@ -15,8 +15,8 @@ from repro_torch.core import device_build as TDB
 from repro_torch.core import graph_build as TGB
 from repro_torch.core import quant as TQ
 from repro_torch.core.multistage import bucket_size
-from repro_torch.kernels import (build_kernel, fes_kernel, ops, ref as TR,
-                                 topk_kernel, traversal_kernel)
+from repro_torch.kernels import (build_kernel, fes_kernel, launch_counts, ops,
+                                 ref as TR, topk_kernel, traversal_kernel)
 from repro_torch.kernels import flash_attention as k8
 from repro_torch.kernels.flash_attention import TENSOR_CORE_HEAD_DIMS
 
@@ -61,10 +61,10 @@ def test_traversal_kernels_match_plain(cuda, mode, W, id_dtype):
     """Bit-equal: the kernel sums distances in the plain version's order."""
     arrs, n = _hop_inputs(33, 16, 32, 48, mode, seed=W, id_dtype=id_dtype)
     t = [a.to(cuda) for a in arrs]
-    before = traversal_kernel.fused_traversal_hop.launches
+    before = launch_counts()["fused_traversal_hop"]
     got = traversal_kernel.fused_traversal_hop(*t, n, width=W, visited_mode=mode)
     want = TR.traversal_hop_ref(*t, n, width=W, visited_mode=mode)
-    assert traversal_kernel.fused_traversal_hop.launches == before + 1
+    assert launch_counts()["fused_traversal_hop"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     got = traversal_kernel.fused_pilot_search(*t, n, rounds=128, width=W,
@@ -171,16 +171,16 @@ def test_traversal_kernels_every_encoding_bit_equal(cuda, dtype, id_dtype):
     side = dict(vec_scale=None if scale is None else scale.to(cuda),
                 vec_codebook=None if cb is None else cb.to(cuda))
     for W in (1, 3):
-        before = traversal_kernel.fused_traversal_hop.launches
+        before = launch_counts()["fused_traversal_hop"]
         got = traversal_kernel.fused_traversal_hop(*t, n, width=W, **side)
         want = TR.traversal_hop_ref(*t, n, width=W, **side)
-        assert traversal_kernel.fused_traversal_hop.launches == before + 1
+        assert launch_counts()["fused_traversal_hop"] == before + 1
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    before = traversal_kernel.fused_pilot_search.launches
+    before = launch_counts()["fused_pilot_search"]
     got = traversal_kernel.fused_pilot_search(*t, n, rounds=128, width=2, **side)
     want = TR.pilot_search_ref(*t, n, rounds=128, width=2, **side)
-    assert traversal_kernel.fused_pilot_search.launches == before + 1
+    assert launch_counts()["fused_pilot_search"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -200,11 +200,11 @@ def test_fes_kernels_every_encoding_match_plain(cuda, dtype, counter):
     kw = dict(scale=scale, codebook=cb)
     want = TR.fes_distances_ref(qg, ev, **kw)
     wrapper = getattr(fes_kernel, counter)
-    before = wrapper.launches
+    before = launch_counts()[wrapper.__name__]
     got = fes_kernel.fes_distances(
         qg.to(cuda), ev.to(cuda),
         **{k: None if v is None else v.to(cuda) for k, v in kw.items()})
-    assert wrapper.launches == before + 1
+    assert launch_counts()[wrapper.__name__] == before + 1
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * 47)
 
 
@@ -266,11 +266,11 @@ def _fes_check(qg, ev, scale, cb, counter, L=32):
     d = qg.shape[2]
     kw = dict(scale=scale, codebook=cb)
     wrapper = getattr(fes_kernel, counter)
-    before = wrapper.launches
+    before = launch_counts()[wrapper.__name__]
     got = fes_kernel.fes_distances(qg, ev, **kw)
     want = TR.fes_distances_ref(qg, ev, **kw)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert launch_counts()[wrapper.__name__] == before + 1
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * d)
     assert _topl_flips(got, want, min(L, ev.shape[1] - 1)) == 0
     return got, want
@@ -383,10 +383,10 @@ def test_fes_pq_kernel_refuses_tables_over_the_limit(cuda):
     qg = torch.zeros((2, 16, 32), device=cuda)
     codes = torch.zeros((2, 64, 16), dtype=torch.int8, device=cuda)
     cb = torch.zeros((32, 16 * 256), device=cuda)
-    before = fes_kernel.fes_pq_distances.launches
+    before = launch_counts()["fes_pq_distances"]
     with pytest.raises(ValueError, match="too wide"):
         fes_kernel.fes_distances(qg, codes, codebook=cb)
-    assert fes_kernel.fes_pq_distances.launches == before
+    assert launch_counts()["fes_pq_distances"] == before
 
 
 def _merge_inputs(seed, B, K, P, n, ties):
@@ -411,9 +411,9 @@ def _merge_inputs(seed, B, K, P, n, ties):
 
 
 def _assert_merge_bit_equal(t, n):
-    before = build_kernel.fused_candidate_merge.launches
+    before = launch_counts()["fused_candidate_merge"]
     gi, gd = build_kernel.fused_candidate_merge(*t, n)
-    assert build_kernel.fused_candidate_merge.launches == before + 1
+    assert launch_counts()["fused_candidate_merge"] == before + 1
     wi, wd = TR.candidate_merge_ref(*t, n)
     assert torch.equal(gi, wi)
     assert torch.equal(gd.view(torch.int32), wd.view(torch.int32))
@@ -526,9 +526,9 @@ def test_expand_merge_kernel_bit_equal(cuda, B, R, ef, d, sentinel, p_fresh):
             rng.integers(0, n, (B, R)).astype(np.int32),
             rng.random((B, R)) < p_fresh, bid, bd, rng.random((B, ef)) > 0.5)
     t = [torch.from_numpy(a).to(cuda) for a in arrs]
-    before = topk_kernel.fused_expand_merge.launches
+    before = launch_counts()["fused_expand_merge"]
     got = topk_kernel.fused_expand_merge(*t, n)
-    assert topk_kernel.fused_expand_merge.launches == before + 1
+    assert launch_counts()["fused_expand_merge"] == before + 1
     for g, w in zip(got, TR.expand_merge_ref(*t, n)):
         assert torch.equal(g, w)
 
@@ -549,9 +549,9 @@ def test_expand_merge_kernel_bf16_vectors(cuda):
             rng.random((B, R)) < 0.7, bid, bd, rng.random((B, ef)) > 0.5)
     t = [torch.from_numpy(a).to(cuda) for a in arrs]
     t[1] = t[1].to(torch.bfloat16)
-    before = topk_kernel.fused_expand_merge.launches
+    before = launch_counts()["fused_expand_merge"]
     got = topk_kernel.fused_expand_merge(*t, n)
-    assert topk_kernel.fused_expand_merge.launches == before + 1
+    assert launch_counts()["fused_expand_merge"] == before + 1
     for g, w in zip(got, TR.expand_merge_ref(*t, n)):
         assert torch.equal(g, w)
     t[1] = t[1].to(torch.float16)
@@ -630,9 +630,9 @@ def test_expand_merge_kernel_routes_bit_equal(cuda, case, B, R, ef, d,
         bd[:, 0] = np.nan
     t = [torch.from_numpy(a).to(cuda) for a in (q, nv, nid, fresh, bid, bd, bck)]
     t[1] = t[1].to(getattr(torch, vectors))
-    before = topk_kernel.fused_expand_merge.launches
+    before = launch_counts()["fused_expand_merge"]
     got = topk_kernel.fused_expand_merge(*t, n)
-    assert topk_kernel.fused_expand_merge.launches == before + 1
+    assert launch_counts()["fused_expand_merge"] == before + 1
     want = TR.expand_merge_ref(*t, n)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0])
@@ -664,10 +664,10 @@ def test_nn_descent_build_on_card(cuda):
     rng = np.random.default_rng(0)
     x = rng.normal(size=(5000, 32)).astype(np.float32)
     n, R = len(x), 16
-    before = build_kernel.fused_candidate_merge.launches
+    before = launch_counts()["fused_candidate_merge"]
     g = TGB.build_graph(x, R, method="nn_descent", seed=0, device=cuda)
     # seeding, the rounds and the reverse-edge pass
-    assert build_kernel.fused_candidate_merge.launches == before + TDB.ROUNDS + 2
+    assert launch_counts()["fused_candidate_merge"] == before + TDB.ROUNDS + 2
     nb = g.neighbors
     real = nb < n
     assert nb.shape == (n, R) and (nb >= 0).all() and (nb <= n).all()
@@ -728,10 +728,10 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, Hkv, D,
     relative Frobenius error."""
     q, k, v = (t.to(cuda) for t in _attn_inputs(B, Sq, Sk, H, Hkv, D,
                                                  dtype, seed=Sq + Sk + D))
-    before, before_bf16 = k8.launches, k8.bf16_launches
+    before, before_bf16 = launch_counts()["flash_attention"], launch_counts()["flash_attention_bf16"]
     got = k8(q, k, v, causal=causal)
-    assert k8.launches == before + 1
-    assert k8.bf16_launches == before_bf16 + (
+    assert launch_counts()["flash_attention"] == before + 1
+    assert launch_counts()["flash_attention_bf16"] == before_bf16 + (
         dtype == torch.bfloat16 and D in TENSOR_CORE_HEAD_DIMS)
     want = TR.flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -765,9 +765,9 @@ def test_flash_attention_fp32_kernel_edges(cuda, dtype, D, edge, causal):
                            seed=Sq + Sk + D)
     q, k, v = ((q * qx).to(dtype).to(cuda), k.to(dtype).to(cuda),
                v.to(dtype).to(cuda))
-    before, before_bf16 = k8.launches, k8.bf16_launches
+    before, before_bf16 = launch_counts()["flash_attention"], launch_counts()["flash_attention_bf16"]
     got = k8(q, k, v, causal=causal)
-    assert k8.launches == before + 1 and k8.bf16_launches == before_bf16
+    assert launch_counts()["flash_attention"] == before + 1 and launch_counts()["flash_attention_bf16"] == before_bf16
     want = TR.flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
@@ -828,12 +828,12 @@ def test_attention_function_grad_matches_plain_autograd(cuda, dtype, shape,
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)
                      ).to(dtype).to(cuda)
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
-    before, before_bf16 = k8.launches, k8.bf16_launches
+    before, before_bf16 = launch_counts()["flash_attention"], launch_counts()["flash_attention_bf16"]
     o = TL.flash_attention(qs, ks, vs, causal=causal, chunk=128)
-    assert k8.launches == before + 1
-    assert k8.bf16_launches == before_bf16 + (dtype == torch.bfloat16)
+    assert launch_counts()["flash_attention"] == before + 1
+    assert launch_counts()["flash_attention_bf16"] == before_bf16 + (dtype == torch.bfloat16)
     got = torch.autograd.grad(o, (qs, ks, vs), do)
-    assert k8.launches == before + 1
+    assert launch_counts()["flash_attention"] == before + 1
     qp, kp, vp = (t.clone().requires_grad_(True) for t in (q, k, v))
     want = torch.autograd.grad(TR.flash_attention_ref(qp, kp, vp,
                                                       causal=causal),
@@ -877,10 +877,10 @@ def test_train_step_on_the_card_matches_cpu(cuda, weights, tol):
         assert got[n].dtype == w.dtype
         err = float((g - w.float()).norm() / w.float().norm())
         assert err <= tol, (n, err)
-    before = k8.launches
+    before = launch_counts()["flash_attention"]
     TS.make_train_step(cfg)(card_p, adamw_init(card_p), batch)
     torch.cuda.synchronize()
-    assert k8.launches == before + 2 * cfg.n_layers
+    assert launch_counts()["flash_attention"] == before + 2 * cfg.n_layers
 
 
 @pytest.mark.cuda
@@ -932,10 +932,10 @@ def test_family_grads_on_the_card_match_cpu(cuda, arch):
     step = TS.make_train_step(cfg, microbatches=1)
     state = adamw_init(card_p)
     snap = copy.deepcopy((card_p.state_dict(), state))
-    before = k8.launches
+    before = launch_counts()["flash_attention"]
     step(card_p, state, card_batch)
     torch.cuda.synchronize()
-    assert k8.launches == before + 2 * attention_calls(cfg)
+    assert launch_counts()["flash_attention"] == before + 2 * attention_calls(cfg)
     first = {n: p.detach().clone() for n, p in card_p.named_parameters()}
     card_p.load_state_dict(snap[0])
     state = snap[1]
@@ -965,10 +965,10 @@ def test_model_and_rag_on_the_card(cuda):
     p_cpu = init_params(cfg, seed=0, device="cpu")
     p_cpu.load_state_dict({k: v.cpu() for k, v in p_gpu.state_dict().items()})
     tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 70))
-    before, before_bf16 = k8.launches, k8.bf16_launches
+    before, before_bf16 = launch_counts()["flash_attention"], launch_counts()["flash_attention_bf16"]
     hg, _ = forward(p_gpu, cfg, tok)
-    assert k8.launches == before + cfg.n_layers
-    assert k8.bf16_launches == before_bf16
+    assert launch_counts()["flash_attention"] == before + cfg.n_layers
+    assert launch_counts()["flash_attention_bf16"] == before_bf16
     hc, _ = forward(p_cpu, cfg, tok)
     rel = (hg.float().cpu() - hc.float()).abs().mean() / hc.float().abs().mean()
     assert float(rel) <= 2e-2
@@ -981,9 +981,9 @@ def test_model_and_rag_on_the_card(cuda):
     with pytest.raises(ValueError, match="one device"):
         RagPipeline(index=index, params=p_cpu, cfg=cfg)
     rag = RagPipeline(index=index, params=p_gpu, cfg=cfg, max_new_tokens=4)
-    before = k8.launches
+    before = launch_counts()["flash_attention"]
     out, ids = rag.generate(tok[:, :16], lambda i: np.full(16, i % 7))
-    assert k8.launches == before + cfg.n_layers       # one embed
+    assert launch_counts()["flash_attention"] == before + cfg.n_layers       # one embed
     assert out.shape == (3, 4) and ((out >= 0) & (out < cfg.vocab_size)).all()
     assert ids.shape == (3, 4) and ((ids >= 0) & (ids < 3000)).all()
 
@@ -1039,7 +1039,7 @@ def test_search_graphs_match_eager(card_index, B, path):
     persistent path, K3 once and K2 at least once per-hop, none on the
     baseline)."""
     from repro_torch.core import SearchParams
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import reset_launch_counts
     index, queries = card_index
     kw = {"persistent": {"use_persistent_traversal": True},
           "per_hop": {"use_pallas_traversal": True}, "baseline": {}}[path]
@@ -1056,8 +1056,11 @@ def test_search_graphs_match_eager(card_index, B, path):
     assert {"persistent": (fes, k1, k2) == (1, 1, 0),
             "per_hop": fes == 1 and k1 == 0 and k2 >= 1,
             "baseline": (fes, k1, k2) == (0, 0, 0)}[path], counts
-    prog = index._get_fn(params, baseline, bucket_size(B))
-    assert prog.syncs >= len(prog.rounds) >= 1
+    # a host test before each chunk of each loop the program yields (stage
+    # ①'s per-hop loop and stage ③'s, or stage ③'s alone)
+    loops = 2 if path == "per_hop" else 1
+    assert counts["search.host_tests"] >= loops
+    assert counts["search.rounds"] >= 1
     # against the unpadded batch: other kernels for another number of rows
     # move the last bits (cancelling in qn + vn − 2·dot); ids stay, and
     # each distance within the fp32 bound of two summation orders
@@ -1240,7 +1243,7 @@ def test_engine_on_the_card_matches_search(card_index):
     """The engine's stage graphs against ``search``'s at bucket 128: ids and
     distance bits equal; K1 launched once a batch."""
     from repro_torch.core import SearchParams
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import reset_launch_counts
     from repro_torch.serving import ServeParams, ThroughputEngine
     index, queries = card_index
     params = SearchParams(k=10, ef=48, ef_pilot=48,

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from repro.models.layers import flash_attention as j_flash
 from repro_torch.kernels import flash_attention as t_flash
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models import layers as TL
 
@@ -71,9 +72,9 @@ def test_wrapper_cpu_route_matches_reference(Sq, Sk, causal, dtype):
     """The wrapper on CPU tensors runs the plain version (and launches
     nothing); Sq != Sk, with q and k aligned at position 0 when causal."""
     arrs = _inputs(2, Sq, Sk, 4, 2, 64, seed=Sq * Sk)
-    before = t_flash.launches
+    before = launch_counts()["flash_attention"]
     got = _port(t_flash, arrs, dtype, causal)
-    assert t_flash.launches == before
+    assert launch_counts()["flash_attention"] == before
     want = _reference(arrs, dtype, causal)
     np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
     np.testing.assert_array_equal(

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from repro.kernels.ref import expand_merge_ref as j_expand_merge_ref
 from repro.kernels.topk_kernel import fused_expand_merge as j_expand_merge
-from repro_torch.kernels import topk_kernel
+from repro_torch.kernels import launch_counts, topk_kernel
 
 torch.set_num_threads(1)
 
@@ -46,9 +46,9 @@ def test_expand_merge_matches_reference(B, R, ef, d, ties):
     Pallas kernel in interpret mode; distances at rtol 1e-5, atol 1e-5 (the
     port sums in the CUDA kernel's lane order, the reference with einsum)."""
     *arrs, n = _case(B, R, ef, d, seed=B + R, ties=ties)
-    before = topk_kernel.fused_expand_merge.launches
+    before = launch_counts()["fused_expand_merge"]
     got = topk_kernel.fused_expand_merge(*(torch.from_numpy(a) for a in arrs), n)
-    assert topk_kernel.fused_expand_merge.launches == before
+    assert launch_counts()["fused_expand_merge"] == before
     jargs = [jnp.asarray(a) for a in arrs]
     for want in (j_expand_merge_ref(*jargs, n),
                  j_expand_merge(*jargs, n, interpret=True)):
