@@ -38,9 +38,9 @@ What a call records (``runtime/trace.py``):
   events, and the tracer adds each stretch between two of them to its
   stage's ``<stage>.device_ns`` once the device has run it.  A stage's
   device time is then the sum of its stretches across every graph it
-  spans (stage ③: its set-up in the first segment, every chunk of its
-  loop, and the top-k segment); the launch gaps between graphs are in
-  none.  Nothing here waits on the device for them.
+  spans (a looped stage: its set-up in the segment before its loop, every
+  chunk of the loop, and the segment after); the launch gaps between
+  graphs are in none.  Nothing here waits on the device for them.
 * Spans (tracing on): ``repro_torch.search`` around a call; inside it one
   span per step, named after the stage in effect where the step starts
   (a segment that holds several stages, as the first one of a multi-stage

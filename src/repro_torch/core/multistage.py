@@ -15,9 +15,11 @@
 
 Stages ① and ② share a *compact* pilot id space, so stage ② inherits ①'s
 visited filter directly; stage ③ lives in the full id space and rebuilds
-its filter from the handed-over beam.  Stages ② and ③ are PyTorch ops (the
-reference has no kernel for them either).  With stages disabled this
-reduces to plain greedy search (the ablation of Table 5).
+its filter from the handed-over beam.  Stage ② is PyTorch ops (the
+reference has no kernel for it); stage ③ runs whole in one launch of its
+own CUDA kernel on the card (``final_spec``), and on the CPU as PyTorch
+rounds, the reference's round.  With stages disabled this reduces to plain
+greedy search (the ablation of Table 5), whose loop takes the same kernel.
 
 Each entry point is a *program* (``core/traversal.py``):
 ``multistage_program`` / ``baseline_program`` yield their stage-① and
@@ -115,11 +117,14 @@ def pilot_spec(params: SearchParams) -> T.TraversalSpec:
 
 
 def final_spec(params: SearchParams) -> T.TraversalSpec:
-    """Stage ③'s (and the baseline's) traversal, in torch ops."""
+    """Stage ③'s (and the baseline's) traversal: one launch of its CUDA
+    kernel where ``traversal.takes_final_kernel`` allows (the card, no
+    hooks, a state that fits), torch rounds elsewhere."""
     return T.TraversalSpec(ef=params.ef, visited_mode=params.visited_mode,
                            bloom_bits=params.bloom_bits,
                            max_iters=params.max_iters,
-                           frontier_width=params.frontier_width)
+                           frontier_width=params.frontier_width,
+                           final_kernel=True)
 
 
 def fes_entries(arrays: Dict[str, torch.Tensor], params: SearchParams,

@@ -12,7 +12,11 @@ With ``spec.use_pallas`` a round runs as one hand-written CUDA kernel
 ``spec.use_persistent`` the whole search does
 (``fused_pilot_search``).  The field names are the reference's, so a
 reader finds the counterpart; on CPU tensors both wrappers run their plain
-PyTorch versions.
+PyTorch versions.  A ``spec.final_kernel`` search (stage ③'s,
+``multistage.final_spec``) runs whole in one launch of
+``fused_final_search`` where ``takes_final_kernel`` finds that it can (the
+card, no hooks, a state that fits), and as torch rounds elsewhere — on the
+CPU always, so the CPU mirrors the reference's rounds.
 
 The traversal returns per-query distance-computation counts — the unit in
 which the paper reports all of its complexity results.
@@ -77,6 +81,9 @@ class TraversalSpec:
     use_pallas: bool = False
     # the whole search in one persistent CUDA kernel; requires use_pallas
     use_persistent: bool = False
+    # stage ③'s search (``multistage.final_spec``): one persistent launch
+    # of its own kernel wherever ``takes_final_kernel`` allows
+    final_kernel: bool = False
 
 
 def sentinel_mask(tombstone: torch.Tensor, ids: torch.Tensor,
@@ -304,6 +311,28 @@ def _kernel_round(spec: TraversalSpec, state: SearchState,
     )
 
 
+def takes_final_kernel(spec: TraversalSpec, device: torch.device,
+                       neighbor_table: Optional[torch.Tensor],
+                       vector_table: torch.Tensor, visited: torch.Tensor, *,
+                       hooked: bool,
+                       vec_scale: Optional[torch.Tensor] = None,
+                       vec_codebook: Optional[torch.Tensor] = None) -> bool:
+    """Whether a ``spec.final_kernel`` search runs as one launch of
+    ``fused_final_search``: on ``cuda``, with no ``nbr_fn``/``dist_fn``
+    hook (``hooked``), and with a state (the neighbour rows, the filter
+    ``visited``, ``vector_table``'s rows) that fits the kernel's shared
+    memory — an exact bitmap over a large ``n`` does not.  Decided from
+    the device and the shapes alone, before any capture; reads no data and
+    needs no card."""
+    if not spec.final_kernel or hooked or device.type != "cuda":
+        return False
+    from repro_torch.kernels.traversal_kernel import SMEM_LIMIT, launch_smem
+    return launch_smem(vector_table, ef=spec.ef, width=spec.frontier_width,
+                       R=neighbor_table.shape[1], vbits=visited.shape[1],
+                       vec_scale=vec_scale,
+                       vec_codebook=vec_codebook) <= SMEM_LIMIT
+
+
 class Loop(NamedTuple):
     """A convergence loop that a search program hands to its driver:
     apply ``round_fn`` to ``state`` until no query has an unchecked
@@ -363,8 +392,9 @@ def greedy_program(spec: TraversalSpec, queries: torch.Tensor,
     otherwise yields one ``Loop`` to convergence (no unchecked candidate
     anywhere) with spec.max_iters as a safety bound.  With
     spec.use_persistent (and no hooks) the whole loop runs inside one
-    persistent kernel instead; a converged round is a fixed point, so the
-    results are identical either way.
+    persistent kernel instead, and so does a spec.final_kernel search where
+    ``takes_final_kernel`` allows; a converged round is a fixed point, so
+    the rounds a launch runs equal the loop's.
     """
     if tombstone is not None:
         entry_ids = sentinel_mask(tombstone, entry_ids, n)
@@ -376,11 +406,19 @@ def greedy_program(spec: TraversalSpec, queries: torch.Tensor,
                        visited=visited, extra_id=extra_id, extra_d=extra_d,
                        vec_scale=vec_scale, vec_codebook=vec_codebook)
 
-    if (spec.use_pallas and spec.use_persistent and nbr_fn is None
-            and dist_fn is None):
+    hooked = nbr_fn is not None or dist_fn is not None
+    whole = None
+    if spec.use_pallas and spec.use_persistent and not hooked:
         from repro_torch.kernels.traversal_kernel import fused_pilot_search
+        whole = fused_pilot_search
+    elif takes_final_kernel(spec, queries.device, neighbor_table,
+                            vector_table, state.visited, hooked=hooked,
+                            vec_scale=vec_scale, vec_codebook=vec_codebook):
+        from repro_torch.kernels.traversal_kernel import fused_final_search
+        whole = fused_final_search
+    if whole is not None:
         rounds = iters if iters is not None else spec.max_iters
-        nid, nd, nck, nvis, d_dist, d_hops, d_exp = fused_pilot_search(
+        nid, nd, nck, nvis, d_dist, d_hops, d_exp = whole(
             queries, neighbor_table, vector_table, state.cand_id,
             state.cand_d, state.checked, state.visited, n, rounds=rounds,
             width=spec.frontier_width, visited_mode=spec.visited_mode,

@@ -1,12 +1,17 @@
-// Stage-① pilot traversal for Hopper (sm_90a): one W-wide expansion round
-// (fused_traversal_hop) or the whole search to convergence
-// (fused_pilot_search), over a vector table in any of the pilot encodings
-// (core/quant.py): fp32, bf16, int8 (x scale), int4 (two nibble planes x
-// scale) or pq codes (per-query lookup table).
+// Greedy graph traversal for Hopper (sm_90a): one W-wide expansion round
+// (fused_traversal_hop) or the whole search to convergence, as stage ①'s
+// pilot search (fused_pilot_search) or stage ③'s final search over the full
+// graph and vectors (fused_final_search), over a vector table in any of the
+// pilot encodings (core/quant.py): fp32, bf16, int8 (x scale), int4 (two
+// nibble planes x scale) or pq codes (per-query lookup table).
 //
 // Replaces the Pallas kernels _hop_kernel and _persistent_kernel of
 // src/repro/kernels/traversal_kernel.py (pallas_call at :486 and :565), which
-// share _round_body (:120-224); here both share the round body below.
+// share _round_body (:120-224); here every entry shares the body below
+// (traversal, its round loop included).  Stage ③ has an entry of its own,
+// final_traversal_kernel, so that a trace and the launch counters tell its
+// launches from stage ①'s (pilot_traversal_kernel); the reference runs
+// stage ③ as a jitted loop of its round of array ops.
 //
 // Layout: one thread block per query.  The beam (ids, distances, checked
 // flags; double-buffered), the query row, the scale row (int8, int4), the
@@ -301,24 +306,28 @@ __device__ __forceinline__ float load_elem(const unsigned char* row, int vw, int
   return static_cast<float>(nib >= 8 ? nib - 16 : nib);
 }
 
+// The operands of every entry, and the same names passed on.
+#define TRAVERSAL_PARAMS                                                      \
+  const float* __restrict__ q, const IdT* __restrict__ nbr,                  \
+      const unsigned char* __restrict__ vec, const float* __restrict__ scale, \
+      const float* __restrict__ codebook,                                     \
+      const unsigned char* __restrict__ tomb, const int* __restrict__ bid_in, \
+      const float* __restrict__ bd_in,                                        \
+      const unsigned char* __restrict__ bck_in,                               \
+      const unsigned char* __restrict__ vis_in, int* __restrict__ bid_out,    \
+      float* __restrict__ bd_out, unsigned char* __restrict__ bck_out,        \
+      unsigned char* __restrict__ vis_out,                                    \
+      unsigned char* __restrict__ fresh_out, int* __restrict__ cnt_out,       \
+      int dq, int vw, int ksub, int row_bytes, int chunk, int n, int R,       \
+      int ef, int W, int vbits, int exact, int rounds, Layout L
+#define TRAVERSAL_ARGS                                                        \
+  q, nbr, vec, scale, codebook, tomb, bid_in, bd_in, bck_in, vis_in, bid_out, \
+      bd_out, bck_out, vis_out, fresh_out, cnt_out, dq, vw, ksub, row_bytes,  \
+      chunk, n, R, ef, W, vbits, exact, rounds, L
+
+// One block's query: load, up to `rounds` rounds, write back.
 template <typename IdT, int ENC>
-__global__ void __launch_bounds__(kThreads)
-pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
-                       const unsigned char* __restrict__ vec,
-                       const float* __restrict__ scale,
-                       const float* __restrict__ codebook,
-                       const unsigned char* __restrict__ tomb,
-                       const int* __restrict__ bid_in,
-                       const float* __restrict__ bd_in,
-                       const unsigned char* __restrict__ bck_in,
-                       const unsigned char* __restrict__ vis_in,
-                       int* __restrict__ bid_out, float* __restrict__ bd_out,
-                       unsigned char* __restrict__ bck_out,
-                       unsigned char* __restrict__ vis_out,
-                       unsigned char* __restrict__ fresh_out,
-                       int* __restrict__ cnt_out, int dq, int vw, int ksub,
-                       int row_bytes, int chunk, int n, int R, int ef, int W,
-                       int vbits, int exact, int rounds, Layout L) {
+__device__ __forceinline__ void traversal(TRAVERSAL_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + L.q);
   float* scl = reinterpret_cast<float*>(smem + L.scl);
@@ -672,11 +681,28 @@ pilot_traversal_kernel(const float* __restrict__ q, const IdT* __restrict__ nbr,
   }
 }
 
+// Stage ①'s entry (K1 persistent, K2 per hop).
+template <typename IdT, int ENC>
+__global__ void __launch_bounds__(kThreads)
+pilot_traversal_kernel(TRAVERSAL_PARAMS) {
+  traversal<IdT, ENC>(TRAVERSAL_ARGS);
+}
+
+// Stage ③'s entry: the same body over the full graph and vectors.
+template <typename IdT, int ENC>
+__global__ void __launch_bounds__(kThreads)
+final_traversal_kernel(TRAVERSAL_PARAMS) {
+  traversal<IdT, ENC>(TRAVERSAL_ARGS);
+}
+
+// The stages whose entries a launch can take.
+enum Entry : int { kPilot = 0, kFinal = 1 };
+
 struct Args {
   const void *q, *nbr, *vec, *scale, *codebook, *tomb, *bid_in, *bd_in, *bck_in,
       *vis_in;
   void *bid_out, *bd_out, *bck_out, *vis_out, *fresh_out, *cnt_out;
-  int B, dq, vw, ksub, n, R, ef, W, vbits, exact, rounds;
+  int B, dq, vw, ksub, n, R, ef, W, vbits, exact, rounds, entry;
 };
 
 inline int stored_row_bytes(int enc, int vw) {
@@ -699,22 +725,23 @@ int launch(const Args& a, cudaStream_t stream) {
   const Layout L = choose_layout(a.dq, a.ef, a.W, a.R, a.vbits, a.scale != nullptr,
                                  lut_width, row_bytes);
   if (L.total > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  // the opt-in size is raised once per device and instantiation, to the
-  // largest size asked for so far
-  static size_t opted[kMaxDevices];
+  auto* kernel = a.entry == kFinal ? final_traversal_kernel<IdT, ENC>
+                                   : pilot_traversal_kernel<IdT, ENC>;
+  // the opt-in size is raised once per device, instantiation and entry, to
+  // the largest size asked for so far
+  static size_t opted[2][kMaxDevices];
   if (L.total > 48 * 1024) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev >= kMaxDevices || L.total > opted[dev]) {
-      e = cudaFuncSetAttribute(pilot_traversal_kernel<IdT, ENC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if (dev >= kMaxDevices || L.total > opted[a.entry][dev]) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(L.total));
       if (e != cudaSuccess) return static_cast<int>(e);
-      if (dev < kMaxDevices) opted[dev] = L.total;
+      if (dev < kMaxDevices) opted[a.entry][dev] = L.total;
     }
   }
-  pilot_traversal_kernel<IdT, ENC><<<a.B, kThreads, L.total, stream>>>(
+  kernel<<<a.B, kThreads, L.total, stream>>>(
       static_cast<const float*>(a.q), static_cast<const IdT*>(a.nbr),
       static_cast<const unsigned char*>(a.vec),
       static_cast<const float*>(a.scale), static_cast<const float*>(a.codebook),
@@ -757,8 +784,26 @@ size_t pilot_traversal_smem_bytes(int dq, int ef, int W, int R, int vbits,
                        stored_row_bytes(enc, vw)).total;
 }
 
-// The most shared memory a launch may ask for; pilot_traversal refuses more.
+// The most shared memory a launch may ask for; a launch refuses more.
 size_t pilot_traversal_smem_limit() { return kSmemLimit; }
+
+#define TRAVERSAL_ENTRY(name, entry)                                          \
+  int name(const void* q, const void* nbr, int id_bytes, const void* vec,      \
+           int enc, int vw, const void* scale, const void* codebook, int ksub, \
+           const void* tomb, const void* bid_in, const void* bd_in,            \
+           const void* bck_in, const void* vis_in, void* bid_out,              \
+           void* bd_out, void* bck_out, void* vis_out, void* fresh_out,        \
+           void* cnt_out, int B, int dq, int n, int R, int ef, int W,          \
+           int vbits, int exact, int rounds, void* stream) {                   \
+    const Args a{q, nbr, vec, scale, codebook, tomb, bid_in, bd_in, bck_in,     \
+                 vis_in, bid_out, bd_out, bck_out, vis_out, fresh_out,         \
+                 cnt_out, B, dq, vw, ksub, n, R, ef, W, vbits, exact, rounds,  \
+                 entry};                                                       \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                        \
+    if (id_bytes == 2) return launch_enc<int16_t>(enc, a, s);                  \
+    if (id_bytes == 4) return launch_enc<int32_t>(enc, a, s);                  \
+    return static_cast<int>(cudaErrorInvalidValue);                            \
+  }
 
 // One launch: `rounds` W-wide expansion rounds per query (1 for the per-hop
 // kernel), each block stopping early once its beam has no unchecked entry.
@@ -767,23 +812,9 @@ size_t pilot_traversal_smem_limit() { return kSmemLimit; }
 // null; tomb: (n+1,) bool deletion bitmap or null.  q is (B, dq).
 // fresh_out (B, W·R) and cnt_out (B, 3) = (n_dist,
 // n_hops, n_exp) deltas are written whole when not null.  Returns
-// cudaGetLastError() after the launch.
-int pilot_traversal(const void* q, const void* nbr, int id_bytes,
-                    const void* vec, int enc, int vw, const void* scale,
-                    const void* codebook, int ksub, const void* tomb,
-                    const void* bid_in, const void* bd_in, const void* bck_in,
-                    const void* vis_in,
-                    void* bid_out, void* bd_out, void* bck_out, void* vis_out,
-                    void* fresh_out, void* cnt_out, int B, int dq, int n,
-                    int R, int ef, int W, int vbits, int exact, int rounds,
-                    void* stream) {
-  const Args a{q, nbr, vec, scale, codebook, tomb, bid_in, bd_in, bck_in, vis_in,
-               bid_out, bd_out, bck_out, vis_out, fresh_out, cnt_out,
-               B, dq, vw, ksub, n, R, ef, W, vbits, exact, rounds};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (id_bytes == 2) return launch_enc<int16_t>(enc, a, s);
-  if (id_bytes == 4) return launch_enc<int32_t>(enc, a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+// cudaGetLastError() after the launch.  pilot_traversal launches stage ①'s
+// entry, final_traversal stage ③'s (the same operands and semantics).
+TRAVERSAL_ENTRY(pilot_traversal, kPilot)
+TRAVERSAL_ENTRY(final_traversal, kFinal)
 
 }  // extern "C"

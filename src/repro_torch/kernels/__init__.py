@@ -15,11 +15,13 @@ from repro_torch.kernels.fes_kernel import (fes_distances,
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ops import fes_select
 from repro_torch.kernels.topk_kernel import fused_expand_merge
-from repro_torch.kernels.traversal_kernel import (fused_pilot_search,
+from repro_torch.kernels.traversal_kernel import (fused_final_search,
+                                                  fused_pilot_search,
                                                   fused_traversal_hop)
 from repro_torch.runtime import trace
 
-KERNELS = (fused_pilot_search, fused_traversal_hop, fes_distances,
+KERNELS = (fused_pilot_search, fused_traversal_hop, fused_final_search,
+           fes_distances,
            fes_int4_distances, fes_pq_distances, fused_expand_merge,
            fused_candidate_merge, flash_attention)
 
@@ -50,5 +52,6 @@ def add_launch_counts(delta: dict) -> None:
 
 __all__ = ["KERNELS", "LAUNCH_NAMES", "fes_distances", "fes_int4_distances",
            "fes_pq_distances", "fes_select", "flash_attention",
-           "fused_candidate_merge", "fused_expand_merge", "fused_pilot_search", "fused_traversal_hop",
+           "fused_candidate_merge", "fused_expand_merge", "fused_final_search",
+           "fused_pilot_search", "fused_traversal_hop",
            "add_launch_counts", "launch_counts", "reset_launch_counts"]

@@ -1,5 +1,6 @@
-"""Stage-① pilot traversal kernels: the per-hop round and the persistent
-whole search, hand-written CUDA for Hopper (``csrc/traversal.cu``).
+"""Traversal kernels: stage ①'s per-hop round and persistent whole search,
+and stage ③'s persistent whole search, hand-written CUDA for Hopper
+(``csrc/traversal.cu``).
 
 Replaces ``repro.kernels.traversal_kernel``: ``fused_traversal_hop``
 (``_hop_kernel``, pallas_call at ``traversal_kernel.py:486``) and
@@ -10,10 +11,18 @@ wider than the stored rows; queries and scale padded to 2·hp here, as the
 reference's ``_encoding_operands`` pads them) and pq codes (codebook; the
 kernel builds the per-query lookup table).
 
-Both wrappers run the kernel for CUDA tensors and the plain version beside
+Every wrapper runs the kernel for CUDA tensors and the plain version beside
 it (``kernels/ref.py``) for CPU tensors; there is no fallback from one to the
 other.  Each counts its launches in the counter
 registry (``runtime/trace.py``) under its name.
+
+``fused_final_search`` is ``fused_pilot_search`` with stage ③'s operands
+(the full graph, int32, and the full fp32 vectors): the same round body and
+loop, launched through an entry of its own (``final_traversal_kernel``), so
+that a trace and the launch counters keep stage ①'s kernel (its name holds
+``pilot_traversal``) apart from stage ③'s.  ``launch_smem`` gives from the
+shapes alone, on the host, the shared memory a launch's state takes
+(``core/traversal.takes_final_kernel`` asks it before any capture).
 
 Bound and design (details in the source): bytes — the neighbour-id rows of
 the expanded candidates and the encoded vector rows of the fresh ones
@@ -47,6 +56,7 @@ distance-sorted, ascending, with sentinels (+inf) last.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import torch
@@ -62,6 +72,11 @@ ENCODINGS = ("float32", "bfloat16", "int8", "int4", "pq")
 _DENSE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
+# the C entry point of each stage's kernel (``TRAVERSAL_ENTRY`` in
+# csrc/traversal.cu)
+_ENTRIES = ("pilot_traversal", "final_traversal")
+
+
 def _lib():
     lib = _build.load("traversal")
     if lib.pilot_traversal.argtypes is None:
@@ -69,12 +84,14 @@ def _lib():
         lib.pilot_traversal_smem_bytes.argtypes = [ctypes.c_int] * 9
         lib.pilot_traversal_smem_limit.restype = ctypes.c_size_t
         lib.pilot_traversal_smem_limit.argtypes = []
-        lib.pilot_traversal.restype = ctypes.c_int
-        lib.pilot_traversal.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
-            + [ctypes.c_void_p])
+        for entry in _ENTRIES:
+            fn = getattr(lib, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = (
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11
+                + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     return lib
 
 
@@ -115,16 +132,53 @@ def encoding_operands(q: torch.Tensor, vec_table: torch.Tensor,
     return (ENCODINGS[_DENSE[vec_table.dtype]], q.contiguous(), scale, None, 0)
 
 
-# shared-memory bytes per (dq, ef, W, R, bits, scaled, lut width, encoding,
-# stored row width): one ctypes call per shape, not per launch
-_SMEM: dict = {}
+# the most shared memory a block may take (``kSmemLimit``), and the
+# threads of a block (``kThreads``), in csrc/traversal.cu
+SMEM_LIMIT = 232448
+_THREADS = 256
 
 
-def _smem_bytes(lib, key) -> int:
-    smem = _SMEM.get(key)
-    if smem is None:
-        smem = _SMEM[key] = lib.pilot_traversal_smem_bytes(*key)
-    return smem
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+@lru_cache(maxsize=None)
+def smem_bytes(dq: int, ef: int, W: int, R: int, vbits: int, has_scale: bool,
+               lut_width: int, row_bytes: int) -> int:
+    """Shared memory of one block, in the layout a launch takes: with the
+    tile of the round's W·R encoded rows where that fits ``SMEM_LIMIT``,
+    else without it.  ``choose_layout`` of csrc/traversal.cu computed on the
+    host (the card tests hold the two equal), so that a shape can be judged
+    without the card."""
+    WR = W * R
+
+    def total(stride: int) -> int:
+        parts = ([4 * dq, 4 * dq if has_scale else 0, 4 * lut_width]
+                 + [4 * ef] * 6 + [4 * ((vbits + 31) // 32 + 1),
+                                   4 * W * (_THREADS // 32)]
+                 + [4 * WR] * 5 + [WR * stride, 16])
+        return sum(_align16(p) for p in parts)
+
+    tiled = total(_align16(row_bytes))
+    return tiled if tiled <= SMEM_LIMIT else total(0)
+
+
+def launch_smem(vec_table: torch.Tensor, *, ef: int, width: int, R: int,
+                vbits: int, vec_scale: Optional[torch.Tensor] = None,
+                vec_codebook: Optional[torch.Tensor] = None) -> int:
+    """``smem_bytes`` of a launch over ``vec_table`` (its decoded row width,
+    scale row, pq lookup table and stored row bytes) with a beam of ``ef``,
+    W ``width``, ``R`` neighbours a row and a filter of ``vbits`` bits.
+    Reads shapes and dtypes only."""
+    enc = quant.table_encoding(vec_table, vec_scale, codebook=vec_codebook)
+    row_bytes = vec_table.shape[1] * vec_table.element_size()
+    if enc == "pq":
+        dq, lut_width = vec_codebook.shape
+    else:
+        dq = 2 * vec_table.shape[1] if enc == "int4" else vec_table.shape[1]
+        lut_width = 0
+    return smem_bytes(dq, ef, width, R, vbits, vec_scale is not None,
+                      lut_width, row_bytes)
 
 
 def check_tombstone(tombstone: Optional[torch.Tensor], n: int) -> None:
@@ -142,7 +196,7 @@ def check_tombstone(tombstone: Optional[torch.Tensor], n: int) -> None:
 def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
             n: int, *, width: int, visited_mode: str, rounds: int,
             want_fresh: bool, vec_scale=None, vec_codebook=None,
-            tombstone=None):
+            tombstone=None, entry: str = "pilot_traversal"):
     Bq = q.shape[0]
     N1, R = nbr_table.shape
     ef = beam_id.shape[1]
@@ -163,17 +217,14 @@ def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
     check_tombstone(tombstone, n)
     enc, qk, scale, cb, ksub = encoding_operands(q, vec_table, vec_scale,
                                                  vec_codebook)
-    dq = qk.shape[1]
-    lut_width = cb.shape[1] if cb is not None else 0
-    code = ENCODINGS.index(enc)
-    lib = _lib()
-    smem = _smem_bytes(lib, (dq, ef, width, R, vbits, int(scale is not None),
-                             lut_width, code, vec_table.shape[1]))
-    limit = lib.pilot_traversal_smem_limit()
-    if smem > limit:
+    smem = launch_smem(vec_table, ef=ef, width=width, R=R, vbits=vbits,
+                       vec_scale=vec_scale, vec_codebook=vec_codebook)
+    if smem > SMEM_LIMIT:
         raise ValueError(f"traversal state needs {smem} B of shared memory per "
-                         f"query (> {limit}): shrink ef/width or use the "
+                         f"query (> {SMEM_LIMIT}): shrink ef/width or use the "
                          f"bloom filter instead of an exact bitmap of {vbits} bits")
+    lib = _lib()
+    dq, code = qk.shape[1], ENCODINGS.index(enc)
 
     dev = q.device
     bid = beam_id.to(torch.int32).contiguous()
@@ -191,7 +242,7 @@ def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
            else torch.empty((Bq, 3), dtype=torch.int32, device=dev))
     if Bq == 0:
         return oid, od, ock, ovis, fresh, cnt
-    rc = lib.pilot_traversal(
+    rc = getattr(lib, entry)(
         _build.ptr(qk), _build.ptr(nbr_table), nbr_table.element_size(),
         _build.ptr(vec_table), code, vec_table.shape[1],
         _build.ptr(scale), _build.ptr(cb), ksub, _build.ptr(tombstone),
@@ -200,7 +251,7 @@ def _launch(q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited,
         _build.ptr(ock), _build.ptr(ovis), _build.ptr(fresh), _build.ptr(cnt),
         Bq, dq, n, R, ef, width, vbits, int(visited_mode == "exact"), rounds,
         _build.stream_of(q))
-    _build.check(lib, rc, "pilot_traversal launch")
+    _build.check(lib, rc, f"{entry} launch")
     return oid, od, ock, ovis, fresh, cnt
 
 
@@ -241,6 +292,29 @@ def fused_traversal_hop(q: torch.Tensor, nbr_table: torch.Tensor,
     return oid, od, ock, ovis, fresh
 
 
+def _whole_search(entry: str, name: str, q, nbr_table, vec_table, beam_id,
+                  beam_d, beam_ck, visited, n: int, *, rounds: int,
+                  width: int, visited_mode: str, vec_scale, vec_codebook,
+                  tombstone):
+    """One persistent launch through the C entry point ``entry``, counted
+    under ``name`` (the plain version on CPU tensors)."""
+    if _build.on_cpu("traversal", q, nbr_table, vec_table, beam_id, beam_d,
+                     beam_ck, visited, vec_scale, vec_codebook, tombstone):
+        return pilot_search_ref(q, nbr_table, vec_table, beam_id, beam_d,
+                                beam_ck, visited, n, rounds=rounds,
+                                width=width, visited_mode=visited_mode,
+                                vec_scale=vec_scale,
+                                vec_codebook=vec_codebook,
+                                tombstone=tombstone)
+    oid, od, ock, ovis, _, cnt = _launch(
+        q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited, n,
+        width=width, visited_mode=visited_mode, rounds=rounds,
+        want_fresh=False, vec_scale=vec_scale, vec_codebook=vec_codebook,
+        tombstone=tombstone, entry=entry)
+    trace.count(name, int(q.shape[0] > 0))
+    return oid, od, ock, ovis, cnt[:, 0], cnt[:, 1], cnt[:, 2]
+
+
 def fused_pilot_search(q: torch.Tensor, nbr_table: torch.Tensor,
                        vec_table: torch.Tensor, beam_id: torch.Tensor,
                        beam_d: torch.Tensor, beam_ck: torch.Tensor,
@@ -255,19 +329,28 @@ def fused_pilot_search(q: torch.Tensor, nbr_table: torch.Tensor,
     unchecked entry.  Inputs as ``fused_traversal_hop``.  Returns
     ``(beam_id, beam_d, beam_ck, visited, n_dist, n_hops, n_exp)`` with the
     three counters as (B,) int32 deltas over the executed rounds."""
-    if _build.on_cpu("traversal", q, nbr_table, vec_table, beam_id, beam_d,
-                     beam_ck, visited, vec_scale, vec_codebook, tombstone):
-        return pilot_search_ref(q, nbr_table, vec_table, beam_id, beam_d,
-                                beam_ck, visited, n, rounds=rounds,
-                                width=width, visited_mode=visited_mode,
-                                vec_scale=vec_scale,
-                                vec_codebook=vec_codebook,
-                                tombstone=tombstone)
-    oid, od, ock, ovis, _, cnt = _launch(
-        q, nbr_table, vec_table, beam_id, beam_d, beam_ck, visited, n,
-        width=width, visited_mode=visited_mode, rounds=rounds,
-        want_fresh=False, vec_scale=vec_scale, vec_codebook=vec_codebook,
-        tombstone=tombstone)
-    trace.count("fused_pilot_search", int(q.shape[0] > 0))
-    return oid, od, ock, ovis, cnt[:, 0], cnt[:, 1], cnt[:, 2]
+    return _whole_search(
+        "pilot_traversal", "fused_pilot_search", q, nbr_table, vec_table,
+        beam_id, beam_d, beam_ck, visited, n, rounds=rounds, width=width,
+        visited_mode=visited_mode, vec_scale=vec_scale,
+        vec_codebook=vec_codebook, tombstone=tombstone)
 
+
+def fused_final_search(q: torch.Tensor, nbr_table: torch.Tensor,
+                       vec_table: torch.Tensor, beam_id: torch.Tensor,
+                       beam_d: torch.Tensor, beam_ck: torch.Tensor,
+                       visited: torch.Tensor, n: int, *, rounds: int,
+                       width: int = 1, visited_mode: str = "bloom",
+                       vec_scale: Optional[torch.Tensor] = None,
+                       vec_codebook: Optional[torch.Tensor] = None,
+                       tombstone: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Persistent stage-③ search (``final_traversal_kernel``): operands,
+    semantics and returns as ``fused_pilot_search``'s, over the full graph
+    and vectors; its launches are counted under this name (module
+    docstring)."""
+    return _whole_search(
+        "final_traversal", "fused_final_search", q, nbr_table, vec_table,
+        beam_id, beam_d, beam_ck, visited, n, rounds=rounds, width=width,
+        visited_mode=visited_mode, vec_scale=vec_scale,
+        vec_codebook=vec_codebook, tombstone=tombstone)

@@ -133,6 +133,67 @@ def test_traversal_kernels_wide_rows_bit_equal(cuda, R, n, mode, W, tiled):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tomb", [False, True])
+@pytest.mark.parametrize("mode", ["bloom", "exact"])
+@pytest.mark.parametrize("B_", [8, 128])
+@pytest.mark.parametrize("d", [96, 200])
+def test_final_traversal_kernel_bit_equal(cuda, d, B_, mode, tomb):
+    """Stage ③'s kernel (``fused_final_search``) at the benchmark's widths,
+    R 32, ef 128, an int32 table, against its plain version: ids, distance
+    bits, flags, filter and counters equal, with and without a deletion
+    bitmap; counted under its own name, never under K1's."""
+    n = 20_000
+    arrs, n = _hop_inputs(B_, 32, 128, d, mode, seed=d + B_, n=n,
+                          id_dtype=np.int32, distinct=False)
+    t = [a.to(cuda) for a in arrs]
+    t[4] = t[4] * (d / 10)               # beam distances near the rows'
+    if mode == "bloom":                  # stage ③'s filter width
+        live = t[3] < n
+        t[6] = TB.bloom_insert(TB.bloom_init(B_, 16384, device=cuda),
+                               t[3].masked_fill(~live, 0), live)
+    kw = dict(rounds=512, visited_mode=mode)
+    if tomb:
+        dead = torch.zeros(n + 1, dtype=torch.bool, device=cuda)
+        dead[torch.randperm(n, device=cuda)[:n // 20]] = True
+        kw["tombstone"] = dead
+    before = launch_counts()
+    got = traversal_kernel.fused_final_search(*t, n, **kw)
+    after = launch_counts()
+    want = TR.pilot_search_ref(*t, n, **kw)
+    assert after["fused_final_search"] == before["fused_final_search"] + 1
+    assert after["fused_pilot_search"] == before["fused_pilot_search"]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want[5].max()) > 8                  # many rounds ran
+
+
+@pytest.mark.cuda
+def test_host_layout_equals_the_kernels(cuda):
+    """``traversal_kernel.smem_bytes`` (the host's layout, which the
+    dispatch judges without the card) equals the library's
+    ``pilot_traversal_smem_bytes`` over every encoding and the tile's
+    edges, and the limits agree."""
+    lib = traversal_kernel._lib()
+    assert lib.pilot_traversal_smem_limit() == traversal_kernel.SMEM_LIMIT
+    for dq, ef, W, R, vbits, scaled, lut, enc, vw in [
+            (96, 128, 1, 32, 16384, 0, 0, 0, 96),      # stage ③, deep1m
+            (200, 128, 1, 32, 16384, 0, 0, 0, 200),    # stage ③, syn200
+            (384, 128, 4, 32, 16384, 0, 0, 0, 384),    # tile 192 KB
+            (384, 128, 4, 48, 16384, 0, 0, 0, 384),    # no tile
+            (48, 128, 1, 32, 1_000_001, 0, 0, 0, 48),  # exact, 1M
+            (96, 128, 1, 32, 2_000_001, 0, 0, 0, 96),  # over the limit
+            (48, 64, 2, 16, 2048, 0, 0, 1, 48),        # bf16
+            (48, 64, 2, 16, 2048, 1, 0, 2, 48),        # int8 + scale
+            (48, 64, 3, 16, 2049, 1, 0, 3, 24),        # int4
+            (48, 64, 1, 16, 2048, 0, 4096, 4, 16)]:    # pq
+        row_bytes = {0: 4 * vw, 1: 2 * vw}.get(enc, vw)
+        assert traversal_kernel.smem_bytes(
+            dq, ef, W, R, vbits, bool(scaled), lut, row_bytes) == \
+            lib.pilot_traversal_smem_bytes(dq, ef, W, R, vbits, scaled, lut,
+                                           enc, vw)
+
+
+@pytest.mark.cuda
 def test_traversal_kernel_refuses_what_it_cannot_hold(cuda):
     arrs, n = _hop_inputs(4, 8, 16, 16, "bloom", seed=0)
     t = [a.to(cuda) for a in arrs]
@@ -1036,8 +1097,8 @@ def test_search_graphs_match_eager(card_index, B, path):
     """``search`` replays CUDA graphs: ids, distance bits and every stats
     key equal to the eager program on the same padded bucket; each kernel's
     counter counts the replayed launches (K1 and K3 once a batch on the
-    persistent path, K3 once and K2 at least once per-hop, none on the
-    baseline)."""
+    persistent path, K3 once and K2 at least once per-hop, neither on the
+    baseline; stage ③'s kernel once a batch on every path)."""
     from repro_torch.core import SearchParams
     from repro_torch.kernels import reset_launch_counts
     index, queries = card_index
@@ -1056,11 +1117,15 @@ def test_search_graphs_match_eager(card_index, B, path):
     assert {"persistent": (fes, k1, k2) == (1, 1, 0),
             "per_hop": fes == 1 and k1 == 0 and k2 >= 1,
             "baseline": (fes, k1, k2) == (0, 0, 0)}[path], counts
-    # a host test before each chunk of each loop the program yields (stage
-    # ①'s per-hop loop and stage ③'s, or stage ③'s alone)
-    loops = 2 if path == "per_hop" else 1
-    assert counts["search.host_tests"] >= loops
-    assert counts["search.rounds"] >= 1
+    assert counts["fused_final_search"] == 1, counts
+    # a host test before each chunk of each loop the program yields: stage
+    # ①'s per-hop loop; stage ③ is one launch, so the persistent and
+    # baseline searches are one graph with none
+    if path == "per_hop":
+        assert counts["search.host_tests"] >= 1
+        assert counts["search.rounds"] >= 1
+    else:
+        assert counts["search.host_tests"] == counts["search.rounds"] == 0
     # against the unpadded batch: other kernels for another number of rows
     # move the last bits (cancelling in qn + vn − 2·dot); ids stay, and
     # each distance within the fp32 bound of two summation orders
@@ -1241,7 +1306,7 @@ def test_inplace_delete_between_replays_recaptures_nothing(cuda):
 @pytest.mark.cuda
 def test_engine_on_the_card_matches_search(card_index):
     """The engine's stage graphs against ``search``'s at bucket 128: ids and
-    distance bits equal; K1 launched once a batch."""
+    distance bits equal; K1 and stage ③'s kernel launched once a batch."""
     from repro_torch.core import SearchParams
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.serving import ServeParams, ThroughputEngine
@@ -1254,6 +1319,7 @@ def test_engine_on_the_card_matches_search(card_index):
     ids, dists, stats = eng.serve(queries[:128])
     assert stats["bucket_hist"] == {128: 1}
     assert launch_counts()["fused_pilot_search"] == 1
+    assert launch_counts()["fused_final_search"] == 1
     want = index.search(queries[:128], params)
     np.testing.assert_array_equal(ids, want[0])
     np.testing.assert_array_equal(dists.view(np.int32),
