@@ -2,10 +2,12 @@
 
     python3 pilotbench/control.py --config deep1m --seeds 11 12 13
 
-For each seed it makes the configuration's vectors and query pool, puts
-the plain reference in the program's place one precision lower than the
-configuration states (``reference.exact_knn(precision="tf32")``: products
-of TF32-rounded operands), answers every pool query with it, and judges
+For each seed it makes the configuration's vectors (the first ``n``: the
+corpus the index is built over, before any held-back row is inserted) and
+query pool, puts the plain reference in the program's place one precision
+lower than the configuration states (``reference.exact_knn(precision=
+"tf32")``: products of TF32-rounded operands), answers every pool query
+with it, and judges
 those answers with the benchmark's own comparison (``check.judge``) against
 the fp32 reference.  The control has to come out not correct: its
 ``dist_err`` is the upper reading that the configuration's limit is set
@@ -33,6 +35,7 @@ def readings(cfg: dict, seed: int, device) -> dict:
     import torch
     from pilotbench import check, reference, vectors
     x, q = vectors.make_dataset(cfg["data"], seed)
+    x = x[:int(cfg["data"]["n"])]
     xd, qd = torch.from_numpy(x).to(device), torch.from_numpy(q).to(device)
     k = int(cfg["search"].get("k", 10))
     gt, _ = reference.exact_knn(xd, qd, k)
@@ -41,7 +44,10 @@ def readings(cfg: dict, seed: int, device) -> dict:
         ids, dists = reference.exact_knn(xd, qd, k, precision=prec)
         r = check.judge(xd, qd, gt, np.arange(len(q)), ids.cpu().numpy(),
                         dists.cpu().numpy(), len(q))
-        c = check.verdict(r, cfg["limits"])
+        # the numbers of a changing corpus have no reading here: no row
+        # changes under the control (their faults: pilotbench/tests)
+        c = check.verdict(r, {k: v for k, v in cfg["limits"].items()
+                              if k in r})
         out[prec] = dict(r, correct=check.is_correct(c))
     return out
 

@@ -12,7 +12,13 @@ A driver file defines ``Driver(sut, pool, traffic, seed)`` with:
 * ``trace()``: drive a short traced window of the same traffic afterwards
   and return ``(trace.Trace, Window)``.
 
-Arrivals and the order of queries are drawn from the run's seed.
+``sut.held`` holds the rows a configuration holds back (``data.n_insert``)
+for a driver to insert, in order.  A driver that changes the corpus hands
+the check a ``MutationLog`` on its ``Window``, so that each answer is
+judged against the rows that were live when its request was submitted.
+
+Arrivals, mutations and the order of queries are drawn from the run's
+seed.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from __future__ import annotations
 import importlib.util
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -47,6 +53,28 @@ class Window:
     batch_stats: List[Dict[str, np.ndarray]] = field(default_factory=list)
     engine: Dict[str, float] = field(default_factory=dict)
     late_s: float = 0.0          # how far behind its schedule the sender ran
+    # a window that changed the corpus: each answer's submit time, the
+    # queries not from the pool (``qidx`` >= the pool's size indexes them),
+    # the row each answer must hold (a read-back of an upsert; -1 for
+    # none) and every mutation since the index was built
+    submit_t: Optional[np.ndarray] = None
+    queries: Optional[np.ndarray] = None
+    reads_back: Optional[np.ndarray] = None
+    mutations: Optional["MutationLog"] = None
+
+
+@dataclass
+class MutationLog:
+    """Every mutation a driver made since the index was built over the
+    first ``n_base`` rows, in submission order: its kind (``insert`` or
+    ``delete``), the global ids it inserted or deleted (an inserted row's id
+    is its row of the run's vectors) and the time, on the window's clock,
+    at which the driver saw it done (-inf for those done before the
+    window)."""
+    n_base: int
+    kinds: List[str]
+    ids: List[np.ndarray]
+    done_t: np.ndarray
 
 
 def launch_delta(before: Dict[str, int]) -> Dict[str, int]:

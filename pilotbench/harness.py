@@ -4,14 +4,17 @@ window, the check against the plain reference, and the result line.
 A run, in order:
 
 1. makes the configuration's vectors and queries from ``--seed``
-   (``vectors.py``), builds the port's index over them and lets the
-   traffic's driver warm up what it will use (``drivers/<kind>.py``):
-   that is ``setup_s``, counted from the start of the process;
+   (``vectors.py``), builds the port's index over them (over the first
+   ``n``, where the configuration holds ``n_insert`` rows back for the
+   driver to insert) and lets the traffic's driver warm up what it will
+   use (``drivers/<kind>.py``): that is ``setup_s``, counted from the
+   start of the process;
 2. drives the window for ``--seconds`` and keeps every answer;
 3. with ``--trace 1``, drives a short traced window of the same traffic;
 4. reads the device's memory peak, frees the program's state, and judges
    every answer of the window against the exact reference
-   (``check.py``, ``reference.py``);
+   (``check.py``, ``reference.py``): over the rows live at each request's
+   submit where the driver changed the corpus;
 5. reads the cell's metrics, each with its own reader
    (``metrics/<name>.py``), and prints the result as the last line of
    standard output, the compared numbers last on standard error.
@@ -46,10 +49,13 @@ def log(msg: str) -> None:
 
 @dataclass
 class SUT:
-    """The system under test as the drivers use it."""
+    """The system under test as the drivers use it, and the rows held back
+    for the driver to insert (``data.n_insert``; none where there are
+    none)."""
     index: Any
     params: Any
     device: torch.device
+    held: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -113,6 +119,24 @@ def by_stretch(w: drivers.Window) -> list:
     return out
 
 
+def judge(cfg: dict, x: np.ndarray, q: np.ndarray, w: drivers.Window,
+          device: torch.device) -> Dict[str, float]:
+    """The check's readings for the answers of ``w``: over the first ``n``
+    rows, or, where the driver changed the corpus, over the rows live at
+    each request's submit (``check.judge_live``)."""
+    k = int(cfg["search"].get("k", 10))
+    live = w.mutations is not None
+    if not live:
+        x = x[:int(cfg["data"]["n"])]
+    elif w.queries is not None:
+        q = np.concatenate([q, w.queries])
+    xd, qd = torch.from_numpy(x).to(device), torch.from_numpy(q).to(device)
+    if live:
+        return check.judge_live(xd, qd, w, k)
+    gt, _ = reference.exact_knn(xd, qd, k)
+    return check.judge(xd, qd, gt, w.qidx, w.ids, w.dists, w.n_due)
+
+
 def power_limit() -> str:
     try:
         out = subprocess.run(
@@ -146,8 +170,9 @@ def run_cell(root: Path, cell_name: str, seed: int, seconds: float,
     if card:
         system.build_kernels()
         log(f"kernels ready at {time.perf_counter() - t_start:.1f} s")
+    n = int(cfg["data"]["n"])
     t = time.perf_counter()
-    index = system.build_index(cfg, x, device)
+    index = system.build_index(cfg, x[:n], device)
     base = getattr(index, "base", index)
     log(f"index built in {time.perf_counter() - t:.1f} s, by part "
         f"{json.dumps(base.build_seconds)}; memory_report "
@@ -156,7 +181,8 @@ def run_cell(root: Path, cell_name: str, seed: int, seconds: float,
     params = system.search_params(cfg)
     run.search = dataclasses.asdict(params)
     run.shapes = index_shapes(index)
-    sut = SUT(index=index, params=params, device=device)
+    sut = SUT(index=index, params=params, device=device,
+              held=x[n:] if len(x) > n else None)
     driver = drivers.make(root, sut, q, traffic, seed)
     driver.setup()
     if card:
@@ -201,11 +227,7 @@ def run_cell(root: Path, cell_name: str, seed: int, seconds: float,
     if card:
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    xd, qd = torch.from_numpy(x).to(device), torch.from_numpy(q).to(device)
-    k = int(cfg["search"].get("k", 10))
-    gt, _ = reference.exact_knn(xd, qd, k)
-    run.readings = check.judge(xd, qd, gt, w.qidx, w.ids, w.dists, w.n_due)
-    del xd, qd, gt
+    run.readings = judge(cfg, x, q, w, device)
     log(f"reference and check in {time.perf_counter() - t:.1f} s")
 
     # -- 5. metrics -------------------------------------------------------

@@ -13,7 +13,7 @@ fp32.  Emulating the rounding keeps the control the same on every device.
 from __future__ import annotations
 
 import contextlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,15 +43,20 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def exact_knn(x: torch.Tensor, q: torch.Tensor, k: int, *,
-              precision: str = "float32", block: int = 1024
+              precision: str = "float32", block: int = 1024,
+              live: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k nearest rows of ``x`` (n, d) to each row of ``q`` (Q, d) by
     ``|q|^2 + |x|^2 - 2 q.x``: (ids (Q, k) int64, squared distances (Q, k)
-    fp32), nearest first.  Queries go in blocks of ``block`` rows."""
+    fp32), nearest first.  Queries go in blocks of ``block`` rows.  With
+    ``live`` (n,) bool, only the live rows count: the others lie at
+    ``+inf``."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}")
     x = x.float()
     xn = (x * x).sum(1)
+    if live is not None:
+        xn = xn.masked_fill(~live, float("inf"))
     xm = round_tf32(x) if precision == "tf32" else x
     ids, dists = [], []
     with tf32_off():

@@ -2,6 +2,8 @@
 
     python3 pilotbench/sweep.py --config deep1m --traffic serve.poisson \\
         --rates 2400 2800 3200 3600 --seconds 8 --seed 7
+    python3 pilotbench/sweep.py --config deep1m-mutable \\
+        --traffic serve.mutable --share 0.5 --rates 5000 9000 13000 --seconds 6
 
 Builds the configuration's index and the mix's engine once, then offers
 each rate in turn for ``--seconds`` (open loop, Poisson arrivals, timed
@@ -10,9 +12,11 @@ completed, latency percentiles, the requests still waiting when the
 arrivals stopped, and p95 over the last third of the arrivals against the
 first third.  A rate is sustained when at most two batches of requests
 are still waiting at the end and the last third's p95 is at most 1.25x the
-first third's; the last line names the highest sustained rate.  The
-benchmark's cells take a fixed rate from this; this script is not run by
-them.
+first third's; the last line names the highest sustained rate and
+``--share`` of it, the rate a cell below capacity offers.  The benchmark's
+cells take a fixed rate from this; this script is not run by them.  A mix
+that changes the corpus changes it through the whole sweep, so its
+held-back rows have to last.
 """
 
 import time
@@ -46,6 +50,9 @@ def step(driver, rate: float, seconds: float) -> dict:
            "p95_first_third_ms": p95(first), "p95_last_third_ms": p95(last),
            "waiting_at_end": waiting, "rows_per_batch": rows,
            "max_gap_ms": 1e3 * max_gap_s(w.done_t, seconds)}
+    if "mutation_time_s" in w.engine:      # a mix that changes the corpus
+        out["mutation_pct"] = 100.0 * w.engine["mutation_time_s"] / seconds
+        out["delta_captures"] = w.engine["delta_captures"]
     out["sustained"] = bool(waiting <= 2 * max(rows, 1.0)
                             and out["p95_last_third_ms"]
                             <= 1.25 * out["p95_first_third_ms"])
@@ -59,6 +66,7 @@ def main() -> int:
     ap.add_argument("--rates", type=float, nargs="+", required=True)
     ap.add_argument("--seconds", type=float, default=8.0)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--share", type=float, default=0.8)
     args = ap.parse_args()
     import torch
     from pilotbench import drivers, harness, manifest, system, vectors
@@ -74,8 +82,10 @@ def main() -> int:
     print(f"# {harness.power_limit()}", flush=True)
     x, q = vectors.make_dataset(cfg["data"], args.seed)
     system.build_kernels()
-    index = system.build_index(cfg, x, dev)
+    n = int(cfg["data"]["n"])
+    index = system.build_index(cfg, x[:n], dev)
     sut = harness.SUT(index=index, params=system.search_params(cfg),
+                      held=x[n:] if len(x) > n else None,
                       device=dev)
     driver = drivers.make(ROOT, sut, q, traffic, args.seed)
     driver.setup()
@@ -87,7 +97,8 @@ def main() -> int:
         if row["sustained"]:
             best = rate
     print(json.dumps({"highest_sustained": best,
-                      "cell_rate_0.8x": None if best is None else 0.8 * best}))
+                      f"cell_rate_{args.share:g}x":
+                      None if best is None else args.share * best}))
     return 0
 
 

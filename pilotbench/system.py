@@ -21,10 +21,14 @@ def check_program() -> None:
 def build_index(cfg: dict, vectors: np.ndarray, device: torch.device):
     """The port's index over ``vectors``: the class of ``repro_torch.core``
     that the configuration names (``index_class``), built by its normal
-    constructor from the configuration's ``index`` block."""
+    constructor from the configuration's ``index`` block, and a mutable
+    index's ``UpdateParams`` from its ``update`` block."""
     from repro_torch import core
     cls = getattr(core, cfg["index_class"])
-    return cls(core.IndexConfig(**cfg["index"]), vectors, device=device)
+    args = [core.IndexConfig(**cfg["index"]), vectors]
+    if "update" in cfg:
+        args.append(core.UpdateParams(**cfg["update"]))
+    return cls(*args, device=device)
 
 
 def search_params(cfg: dict):

@@ -1,7 +1,8 @@
 """The readers of the program's own counters and stage timings, on the CPU
-at a tiny size: the host tests and the engine's split of a request's
-latency read numbers, the stage timings (CUDA graphs' events) read
-nothing, and the manifest with their entries meets the contract.  The
+at a tiny size: the engine's split of a request's latency reads numbers,
+the stage timings (CUDA graphs' events) read nothing, the retired host
+tests' reader is gone, and the manifest with their entries meets the
+contract.  The
 stage readers' arithmetic, and their refusal of a window that dropped a
 timing, on counters given by hand."""
 
@@ -17,6 +18,8 @@ from pilotbench.tests.tiny import REPO, make_root
 STAGE_READERS = [f"stage{i}.device_ms_per_batch" for i in range(4)]
 ENGINE_READERS = ["engine.queued_ms", "engine.in_flight_ms",
                   "engine.drain_ms"]
+# retired: since the search is one CUDA graph a batch, its counter stays 0
+RETIRED = "search.host_tests_per_batch"
 
 
 @pytest.fixture(scope="module")
@@ -32,20 +35,17 @@ def traced(root, cell):
 def test_the_manifest_with_the_new_entries_meets_the_contract():
     man = manifest.load(REPO)
     names = {m["name"] for m in man["per_layer"]}
-    assert set(STAGE_READERS + ENGINE_READERS
-               + ["search.host_tests_per_batch"]) <= names
+    assert set(STAGE_READERS + ENGINE_READERS) <= names
+    assert RETIRED not in names
+    assert not manifest.metric_file(REPO, RETIRED).exists()
     assert manifest.problems(man, REPO) == []
 
 
-def test_search_cell_reads_host_tests_and_no_stage_time(root):
+def test_search_cell_reads_no_stage_time_and_no_host_tests(root):
     out = traced(root, "tiny.search")
     assert out["correct"] is True
     m = out["metrics"]
-    # two loops a batch (stage 1 and stage 3 on the CPU), at least one test
-    # before each of their chunks
-    assert m["search.host_tests_per_batch"]["value"] >= 2
-    assert m["search.host_tests_per_batch"]["unit"] == "tests"
-    for name in STAGE_READERS:
+    for name in STAGE_READERS + [RETIRED]:
         assert name not in m, name
 
 
@@ -57,7 +57,7 @@ def test_serve_cell_reads_the_engine_split(root):
         assert m[name]["value"] >= 0 and m[name]["unit"] == "ms", name
     assert m["engine.queued_ms"]["value"] > 0
     assert m["engine.drain_ms"]["value"] > 0
-    for name in STAGE_READERS + ["search.host_tests_per_batch"]:
+    for name in STAGE_READERS + [RETIRED]:
         assert name not in m, name
 
 

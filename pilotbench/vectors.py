@@ -44,7 +44,12 @@ def synthetic_vectors(n: int, d: int, *, n_queries: int, seed: int,
 
 def make_dataset(data: dict, seed: int) -> Tuple[np.ndarray, np.ndarray]:
     """A configuration's ``data`` block (``n``, ``d``, ``n_queries``,
-    ``spectral_decay``) made from ``seed``."""
-    return synthetic_vectors(int(data["n"]), int(data["d"]),
+    ``spectral_decay``, optional ``n_insert``) made from ``seed``: ``n +
+    n_insert`` rows, the index built over the first ``n`` and the last
+    ``n_insert`` held back for a driver to insert in order.  Rows are drawn
+    independently of one another, so the held-back rows are a sample of the
+    same corpus; without ``n_insert`` the bytes are those of ``n`` rows."""
+    n = int(data["n"]) + int(data.get("n_insert", 0))
+    return synthetic_vectors(n, int(data["d"]),
                              n_queries=int(data["n_queries"]), seed=seed,
                              spectral_decay=float(data["spectral_decay"]))
